@@ -1,0 +1,279 @@
+"""Communication layer: positions, the at-rest layout, and collectives.
+
+Port of ``heat_tpu/core/communication.py``.  The model stays
+single-controller: one Python process holds every DNDarray as ONE global,
+canonically padded tensor, and a communicator is a list of **positions**
+(the reference's mesh positions).  Position ``r`` owns rows
+``[r*c, (r+1)*c)`` of the padded split axis, ``c = ceil(n/p)``.
+
+Each position maps to a torch device, and one device may fill several
+positions, as one host fills eight mesh positions in the reference's test
+rig.  This matters because the quantized ring is an identity at one
+position: a one-card machine exercises it only with several positions on
+that card.  While every position shares one device, a collective is a
+tensor operation along the stacked ``(p, ...)`` position axis and a ring
+hop is a roll along it.  Positions on different devices are not supported
+yet and raise :class:`NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from . import devices
+
+__all__ = [
+    "TorchCommunication",
+    "get_comm",
+    "use_comm",
+    "sanitize_comm",
+    "comm_for_device",
+]
+
+
+def _torch_device(d: Union[str, torch.device]) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _nbytes(array: torch.Tensor) -> int:
+    return array.numel() * array.element_size()
+
+
+class TorchCommunication:
+    """A communicator over ``positions``, a sequence of torch devices (or
+    their names), one entry per position.  Defaults to one position per
+    visible CUDA device, or one CPU position when the default device is
+    the CPU."""
+
+    def __init__(self, positions: Optional[Sequence[Union[str, torch.device]]] = None):
+        if positions is None:
+            dev = devices.get_device()
+            if dev is devices.gpu:
+                positions = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            else:
+                positions = ["cpu"]
+        self._positions: List[torch.device] = [_torch_device(p) for p in positions]
+        if not self._positions:
+            raise ValueError("a communicator needs at least one position")
+        if len(set(self._positions)) > 1:
+            raise NotImplementedError(
+                f"positions on several devices ({sorted(set(map(str, self._positions)))}) "
+                "are not supported yet: every position must share one device"
+            )
+
+    # ------------------------------------------------------------------ #
+    # identity                                                            #
+    # ------------------------------------------------------------------ #
+    @property
+    def device(self) -> torch.device:
+        """The torch device every position lives on."""
+        return self._positions[0]
+
+    @property
+    def size(self) -> int:
+        """Number of positions (the reference's mesh size)."""
+        return len(self._positions)
+
+    def __repr__(self) -> str:
+        return f"TorchCommunication({self.size} position(s) on {self.device})"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, TorchCommunication) and self._positions == other._positions
+
+    def __hash__(self) -> int:
+        return hash(tuple(str(p) for p in self._positions))
+
+    # ------------------------------------------------------------------ #
+    # shard geometry                                                      #
+    # ------------------------------------------------------------------ #
+    def chunk(
+        self, shape: Sequence[int], split: Optional[int], rank: Optional[int] = None
+    ) -> Tuple[int, Tuple[int, ...], Tuple[slice, ...]]:
+        """``(offset, lshape, slices)`` of the shard position ``rank`` owns:
+        ceil-division shards, trailing shards absorb the shortfall."""
+        rank = 0 if rank is None else rank
+        shape = tuple(int(s) for s in shape)
+        if split is None:
+            return 0, shape, tuple(slice(0, s) for s in shape)
+        split = int(split) % max(len(shape), 1)
+        n = shape[split]
+        c = self.shard_width(n)
+        start = min(rank * c, n)
+        stop = min((rank + 1) * c, n)
+        lshape = shape[:split] + (stop - start,) + shape[split + 1:]
+        slices = tuple(
+            slice(start, stop) if dim == split else slice(0, s) for dim, s in enumerate(shape)
+        )
+        return start, lshape, slices
+
+    def counts_displs_shape(
+        self, shape: Sequence[int], split: int
+    ) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
+        """Per-position counts and displacements along ``split``, and the
+        shape of position 0's shard."""
+        counts, displs = [], []
+        for r in range(self.size):
+            offset, lshape, _ = self.chunk(shape, split, rank=r)
+            counts.append(lshape[split])
+            displs.append(offset)
+        _, lshape0, _ = self.chunk(shape, split, rank=0)
+        return tuple(counts), tuple(displs), tuple(lshape0)
+
+    def shard_width(self, n: int) -> int:
+        """Width of every padded shard of an axis of length ``n``."""
+        n = int(n)
+        return -(-n // self.size) if n else 0
+
+    def padded_size(self, n: int) -> int:
+        """Padded axis length ``p * shard_width(n)`` (>= n)."""
+        return self.size * self.shard_width(n)
+
+    def valid_counts(self, n: int) -> Tuple[int, ...]:
+        """Per-position count of real (un-padded) rows of an axis of
+        length ``n``."""
+        c = self.shard_width(n)
+        n = int(n)
+        return tuple(min(c, max(0, n - r * c)) for r in range(self.size))
+
+    def pad_to_shards(self, array: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Zero-pad ``axis`` to its canonical padded length (no copy when
+        it already divides)."""
+        n = int(array.shape[axis])
+        pn = self.padded_size(n)
+        if pn == n:
+            return array
+        pad_shape = list(array.shape)
+        pad_shape[axis] = pn - n
+        pad = torch.zeros(pad_shape, dtype=array.dtype, device=array.device)
+        return torch.cat([array, pad], dim=axis)
+
+    def unpad(self, array: torch.Tensor, n: int, axis: int = 0) -> torch.Tensor:
+        """The first ``n`` entries of a padded axis (a view)."""
+        if int(array.shape[axis]) == int(n):
+            return array
+        return array.narrow(axis, 0, int(n))
+
+    def blocks(self, buffer: torch.Tensor, split: int) -> torch.Tensor:
+        """View a padded buffer split at ``split`` as its stacked position
+        blocks: shape ``(p,) + local block shape``."""
+        shape = tuple(buffer.shape)
+        p = self.size
+        c = shape[split] // p
+        view = buffer.reshape(shape[:split] + (p, c) + shape[split + 1:])
+        return view.movedim(split, 0)
+
+    # ------------------------------------------------------------------ #
+    # collectives on the stacked position axis                            #
+    # ------------------------------------------------------------------ #
+    def allreduce(self, array: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """All-reduce a per-position quantity: ``array`` has shape
+        ``(size, ...)``, one block per position; returns the combined
+        ``(...)``.  A compressible ``sum`` payload rides the block-scaled
+        quantized ring when the collective-precision policy asks for it."""
+        if op not in ("sum", "prod", "max", "min"):
+            raise ValueError(f"unsupported allreduce op {op!r}")
+        n = self.size
+        if int(array.shape[0]) != n:
+            raise ValueError(
+                f"allreduce expects one block per mesh position: leading axis "
+                f"{array.shape[0]} != mesh size {n}"
+            )
+        if n == 1:
+            return array[0]
+        if op == "sum":
+            from ..comm import compressed as _cq
+
+            mode = _cq.reduce_mode(array.dtype, _nbytes(array) // n)
+            if mode is not None:
+                return _cq.allreduce_q(array, op=op, comm=self, precision=mode)
+            return array.sum(dim=0)
+        if op == "prod":
+            return array.prod(dim=0)
+        if op == "max":
+            return array.amax(dim=0)
+        return array.amin(dim=0)
+
+    def allgather(self, array: torch.Tensor, axis: Optional[int] = 0) -> torch.Tensor:
+        """Replicate a global tensor split at ``axis`` (``None``: already
+        replicated).  The global tensor already holds every shard, so the
+        exact form returns it unchanged; under a compressing policy a
+        canonically split payload rides the quantized ring
+        (:func:`heat_tpu_torch.comm.allgather_q`)."""
+        if self.size > 1 and axis is not None and array.ndim:
+            from ..comm import compressed as _cq
+
+            mode = _cq.reduce_mode(array.dtype, _nbytes(array))
+            if mode is not None and int(array.shape[axis]) % self.size == 0:
+                return _cq.allgather_q(array, axis=axis, comm=self, precision=mode)
+        return array
+
+    def resplit(self, array: torch.Tensor, split: Optional[int]) -> torch.Tensor:
+        """The at-rest form of a TRUE-shape global tensor laid out at
+        ``split``: the split axis zero-padded to its canonical length."""
+        if split is None or array.ndim == 0:
+            return array
+        return self.pad_to_shards(array, axis=int(split) % array.ndim)
+
+    def ring_permute(self, array: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Rotate the axis-0 shards around the ring: position ``i``'s shard
+        moves to position ``i + shift``.  A non-divisible axis is padded
+        first, so the result has the padded length."""
+        n = self.size
+        if n == 1:
+            return array
+        array = self.pad_to_shards(array, axis=0)
+        blocks = array.reshape((n, -1) + tuple(array.shape[1:]))
+        return torch.roll(blocks, shifts=int(shift), dims=0).reshape(array.shape)
+
+
+# ---------------------------------------------------------------------- #
+# process-wide default communicator                                       #
+# ---------------------------------------------------------------------- #
+_default_comm: Optional[TorchCommunication] = None
+_device_comms: Dict[str, TorchCommunication] = {}
+
+
+def comm_for_device(device) -> TorchCommunication:
+    """The default communicator of a device class (cached): one position
+    per visible CUDA device for the GPU, one position for the CPU."""
+    device = devices.sanitize_device(device)
+    key = device.device_type
+    if key not in _device_comms:
+        if device is devices.gpu:
+            if not torch.cuda.is_available():
+                raise RuntimeError("device 'gpu' requested but no CUDA device is available")
+            pos = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            pos = ["cpu"]
+        _device_comms[key] = TorchCommunication(pos)
+    return _device_comms[key]
+
+
+def get_comm() -> TorchCommunication:
+    """The communicator set by :func:`use_comm`, else the default
+    device's."""
+    if _default_comm is not None:
+        return _default_comm
+    return comm_for_device(devices.get_device())
+
+
+def use_comm(comm: Optional[TorchCommunication] = None) -> None:
+    """Set the process-wide default communicator (``None`` clears it)."""
+    global _default_comm
+    if comm is not None and not isinstance(comm, TorchCommunication):
+        raise TypeError(f"expected a TorchCommunication, got {type(comm)}")
+    _default_comm = comm
+
+
+def sanitize_comm(comm: Optional[TorchCommunication]) -> TorchCommunication:
+    """Validate a communicator argument, substituting the default for None."""
+    if comm is None:
+        return get_comm()
+    if not isinstance(comm, TorchCommunication):
+        raise TypeError(f"expected a TorchCommunication or None, got {type(comm)}")
+    return comm

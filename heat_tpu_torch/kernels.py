@@ -1,0 +1,101 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
+a plain C interface, ``build/kernels/lib<name>-<hash>.so`` next to the
+package, and loads with :mod:`ctypes`.  The hash is the source's content
+hash, so a changed source never loads a stale library.  Builds happen at
+first use (or all at once, in parallel, through :func:`build_all`), never
+at import; on a machine without ``nvcc`` nothing here runs.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and IEEE arithmetic spelled out —
+no fast math, no flush of subnormals, IEEE division — because the
+block-quantization kernels must match their plain versions bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["CSRC", "BUILD_DIR", "build_all", "build_log", "library"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    "--ftz=false", "--prec-div=true", "--prec-sqrt=true", "--fmad=false",
+    "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (nvcc); set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every source in ``csrc/`` that has no up-to-date library,
+    one ``nvcc`` per source, all started together.  Returns the seconds
+    each build took (0.0 for a library already built); the compiler's
+    register and spill report lands in ``<library>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs, seconds = {}, {}
+    for src in sorted(CSRC.glob("*.cu")):
+        name = src.stem
+        out = _target(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, log, t0) in procs.items():
+        rc = proc.wait()
+        log.close()
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(f"{name} (nvcc exit {rc}; see {out.with_suffix('.log')})")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + ", ".join(failed))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for ``csrc/<name>.cu``'s library."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        out = _target(name)
+        if not out.exists():
+            build_all()
+        lib = ctypes.CDLL(str(out))
+        _loaded[name] = lib
+    return lib
