@@ -25,7 +25,30 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    and the error-feedback KMeans fit, each held to the documented ring
    bound ``p * sum_i absmax_i / 254`` of what rides the ring (the labels
    to 99.9 % of the exact fit's); the kernels' launch counts are set to 0
-   before this phase and read after it, and each must be above 0.
+   before this phase and read after it, and each must be above 0;
+5. the flash-attention kernels (B3 ``flash_attention``, B4
+   ``flash_attention_partial``) against their plain versions on the card
+   at the reference benchmark's attention shape (S=4096, H=16, D=64: bf16,
+   bf16 causal, f32 causal) and at edge cases (D 16/32/128, float16,
+   q_base > 0 with K/V longer than Q, a q tile wholly before its K/V
+   segment, a chain of two partial folds), each also against float64
+   dense attention, then timed beside their bound and, for B3, PyTorch's
+   ``scaled_dot_product_attention`` (timed as a yardstick only);
+6. the attention path at FOUR positions on the one card: ring attention
+   (f32 contiguous flash fold at S=2048, H=8; bf16 causal zig-zag fold at
+   S=4096, H=16), Ulysses (bf16 causal) and ring self-attention (f32,
+   x 4096 x 1024 and weights 1024 x 64 carried in through ``interop``),
+   each held against single-card ``flash_attention`` or float64 dense
+   attention; both kernels' launch counts are set to 0 before this phase
+   and read after it, and each must be above 0.
+
+Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
+bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
+output type of the plain version, the ulp taken at each output row's
+largest magnitude (its D values: a bf16 rounding of one ``p`` that flips
+when kernel and plain scores differ in their last float32 bit moves the
+row by about 2^-8 of a value of that row's scale); a partial chain within
+2e-6 of the full kernel.
 
 Then it prints a metrics line, the card line, the kernels line, and as its
 last line ``{"ok": true, "device": {...}}``.  ``--out`` also writes every
@@ -47,11 +70,20 @@ SUB = 20_000
 PAYLOAD = 1 << 20
 POSITIONS = 4
 BLOCK = 128
-#: H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) rate
+#: H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor-core) rate and
+#: the bf16/fp16 dense tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 FLT_MIN = float(np.finfo(np.float32).tiny)
 SOURCE = "heat_tpu_torch/csrc/blockquant.cu"
+ATTN_SOURCE = "heat_tpu_torch/csrc/flash_attention.cu"
+#: the reference benchmark's attention headline (bench.py:67-68) and ring
+#: family (bench.py:1678)
+ATTN_S, ATTN_H, ATTN_D = 4096, 16, 64
+RING_S, RING_H = 2048, 8
+SELF_E = 1024
+F32_TOL, HALF_TOL, CHAIN_TOL = 2e-5, 5e-2, 2e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,8 +214,8 @@ def wall_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, ops: float):
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -255,6 +287,296 @@ def phase_kernels(torch, cq, dev):
     return rows_out
 
 
+# --------------------------------------------------------------------- #
+# attention (phases 5 and 6)                                              #
+# --------------------------------------------------------------------- #
+def attn_inputs(shape, dtype, seed: int, dev, n: int = 3):
+    """``n`` float32 normal arrays from a numpy seed, on ``dev`` in ``dtype``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).to(dtype)
+            for _ in range(n)]
+
+
+def dense64(q, k, v, causal: bool, q_base: int = 0):
+    """Float64 dense attention on (B, S, H, D), one head at a time."""
+    import torch
+
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    out = torch.empty((B, S, H, D), dtype=torch.float64, device=q.device)
+    keep = None
+    if causal:
+        keep = (q_base + torch.arange(S, device=q.device)[:, None]) >= torch.arange(Sk, device=q.device)[None, :]
+    for b in range(B):
+        for h in range(H):
+            qh, kh, vh = (t[b, :, h].double() for t in (q, k, v))
+            sc = (qh @ kh.T) / np.sqrt(D)
+            if keep is not None:
+                sc = sc.masked_fill(~keep, -np.inf)
+            out[b, :, h] = torch.softmax(sc, dim=-1) @ vh
+    return out
+
+
+def ulps(a, b) -> float:
+    """Largest distance of ``a`` from ``b`` in ulps of their (half-precision
+    or float32) dtype, the ulp taken at the largest magnitude of each row
+    of ``b`` (its last axis)."""
+    import torch
+
+    mant = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[a.dtype]
+    mag = torch.clamp_min(b.double().abs().amax(dim=-1, keepdim=True), 2.0 ** -100)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+    return float(((a.double() - b.double()).abs() / ulp).max())
+
+
+def hold(what: str, out, plain, ref) -> float:
+    """Hold a kernel's output to its plain version and to float64 dense at
+    the stated tolerances; returns the max abs error against plain."""
+    import torch
+
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    err_plain = max_abs_err(out.float(), plain.float())
+    err_ref = float((out.double() - ref).abs().max())
+    if out.dtype == torch.float32:
+        check(err_plain <= F32_TOL, f"{what}: {err_plain:.3g} from plain > {F32_TOL}")
+        check(err_ref <= F32_TOL, f"{what}: {err_ref:.3g} from float64 dense > {F32_TOL}")
+        print(f"{what}: plain {err_plain:.3g}, dense {err_ref:.3g}")
+    else:
+        u = ulps(out, plain)
+        check(u <= 2.0, f"{what}: {u:.3g} ulps from plain > 2")
+        check(err_ref <= HALF_TOL, f"{what}: {err_ref:.3g} from float64 dense > {HALF_TOL}")
+        print(f"{what}: plain {err_plain:.3g} ({u:.2f} ulps), dense {err_ref:.3g}")
+    return err_plain
+
+
+def hold_state(what: str, got, want, dtype) -> float:
+    """Hold a partial fold's state to its plain version: ``m`` and ``l``
+    within 2e-5 relative (float32 maxima and sums of the float32 ``p``),
+    the normalized ``acc / l`` at the output tolerance of ``dtype`` (2e-5
+    for float32, 2 ulps per row for bf16/f16: the PV product takes ``p``
+    rounded to ``dtype``).  Returns the max abs error of ``acc / l``."""
+    import torch
+
+    (m, l, acc), (m0, l0, acc0) = got, want
+    check(bool(torch.equal(torch.isfinite(m), torch.isfinite(m0))), f"{what}: m finiteness differs")
+    for name, a, b in (("m", m, m0), ("l", l, l0)):
+        err = max_abs_err(a, b)
+        scale = float(b[torch.isfinite(b)].abs().max()) if bool(torch.isfinite(b).any()) else 1.0
+        check(err <= F32_TOL * max(1.0, scale), f"{what}: {name} {err:.3g} from plain")
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out0 = acc0 / torch.clamp_min(l0, 1e-30)[..., None]
+    err = max_abs_err(out, out0)
+    if dtype == torch.float32:
+        check(err <= F32_TOL, f"{what}: acc/l {err:.3g} from plain > {F32_TOL}")
+        print(f"{what}: acc/l {err:.3g} from plain")
+    else:
+        u = ulps(out.to(dtype), out0.to(dtype))
+        check(u <= 2.0, f"{what}: acc/l {u:.3g} ulps from plain > 2")
+        print(f"{what}: acc/l {err:.3g} from plain ({u:.2f} ulps)")
+    return err
+
+
+def attn_flops(S: int, Sk: int, D: int, heads: int, causal: bool, tile: int = 64) -> float:
+    """4*S*Sk*D per head over the visited tiles: (n^2+n)/2 of n^2 tiles
+    under causal (S == Sk, square tiles)."""
+    ops = 4.0 * S * Sk * D * heads
+    if causal:
+        n = S // tile
+        ops *= (n * n + n) / 2 / (n * n)
+    return ops
+
+
+def phase_attention_kernels(torch, fa, dev):
+    """Phase 5: B3/B4 against their plain versions (at the kernel's 64 x 64
+    tiles) and float64 dense, at edge cases and the headline shape; then
+    timed.  Returns the two kernel rows and the three tokens/s metrics."""
+    bq, bk = fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K
+    plain = lambda q, k, v, c, qb=0: fa.flash_attention_plain(q, k, v, c, qb, bq, bk)  # noqa: E731
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+
+    # -- edge cases at small shapes
+    for D in (16, 32, 128):
+        for dt in (f32, bf16):
+            q, k, v = attn_inputs((1, 256, 2, D), dt, seed=D, dev=dev)
+            hold(f"flash D={D} {dt} causal", fa.flash_attention(q, k, v, True),
+                 plain(q, k, v, True), dense64(q, k, v, True))
+    q, k, v = attn_inputs((2, 256, 2, 64), f16, seed=5, dev=dev)
+    hold("flash f16 causal B=2", fa.flash_attention(q, k, v, True), plain(q, k, v, True),
+         dense64(q, k, v, True))
+    for dt in (f32, bf16):
+        q, k, v = attn_inputs((1, 512, 2, 64), dt, seed=6, dev=dev)
+        qs = q[:, 256:384]
+        hold(f"flash q_base=256 Sq=128 Sk=512 {dt}", fa.flash_attention(qs, k, v, True, q_base=256),
+             plain(qs, k, v, True, 256), dense64(q, k, v, True)[:, 256:384])
+
+    BH, L, D = 8, 256, 64
+    q, k, v = attn_inputs((BH, 2 * L, D), f32, seed=7, dev=dev)
+    st0 = (torch.full((BH, L), -float("inf"), device=dev), torch.zeros((BH, L), device=dev),
+           torch.zeros((BH, L, D), device=dev))
+    # a q tile wholly before its K/V segment: no tile visited, state untouched
+    m, l, acc = fa.flash_attention_partial(q[:, :L], k[:, L:], v[:, L:], *st0, 0, L, causal=True)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(a, b)) for a, b in zip((m, l, acc), st0)),
+          "partial: a q tile before its segment changed the state")
+    # a chain of two segments equals the full kernel
+    for causal in (False, True):
+        st = (torch.full((BH, 2 * L), -float("inf"), device=dev),
+              torch.zeros((BH, 2 * L), device=dev), torch.zeros((BH, 2 * L, D), device=dev))
+        for r in range(2):
+            sl = slice(r * L, (r + 1) * L)
+            st = fa.flash_attention_partial(q, k[:, sl], v[:, sl], *st, 0, r * L, causal=causal)
+        chained = st[2] / torch.clamp_min(st[1], 1e-30)[..., None]
+        full = fa.flash_attention(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                                  v.transpose(0, 1)[None], causal)[0].transpose(0, 1)
+        err = max_abs_err(chained, full)
+        check(err <= CHAIN_TOL, f"partial chain causal={causal}: {err:.3g} from full > {CHAIN_TOL}")
+        print(f"partial chain of 2 == full kernel, causal={causal}: {err:.3g}")
+
+    # -- the headline shape, checked then timed
+    S, H, D = ATTN_S, ATTN_H, ATTN_D
+    sets = 3  # 3 x (Q, K, V) of 8-16 MiB each: past the L2
+    results, metrics = {}, {}
+    for key, dt, causal in (("attention", bf16, False), ("causal_attention", bf16, True),
+                            ("causal_attention_f32", f32, True)):
+        argsets = [tuple(attn_inputs((1, S, H, D), dt, seed=100 + i, dev=dev)) for i in range(sets)]
+        q, k, v = argsets[0]
+        out = fa.flash_attention(q, k, v, causal)
+        err = hold(f"flash S={S} H={H} D={D} {dt} causal={causal}", out, plain(q, k, v, causal),
+                   dense64(q, k, v, causal))
+        ms = device_ms(lambda a, b, c: fa.flash_attention(a, b, c, causal), argsets)
+        plain_ms = device_ms(lambda a, b, c: plain(a, b, c, causal), argsets, per_graph=2, trials=3)
+        lib_ms = device_ms(
+            lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
+                a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2), is_causal=causal),
+            argsets)
+        nbytes = 4 * S * H * D * q.element_size()
+        ops_rate = FP32_OPS_PER_S if dt == f32 else BF16_TC_OPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, attn_flops(S, S, D, H, causal), ops_rate)
+        results[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                            bound_by=b_by, max_abs_err=err)
+        metrics[f"{key}_tokens_per_s"] = S / (ms / 1e3)
+        print(f"flash_attention {key}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by {b_by}), "
+              f"plain {plain_ms * 1e3:.1f} us, scaled_dot_product_attention {lib_ms * 1e3:.1f} us")
+
+    # B4 at the zig-zag ring's round fold: 4 positions x 16 heads, Lh = 512
+    P, Lh = POSITIONS, ATTN_S // POSITIONS // 2
+    rows = P * ATTN_H
+    argsets = []
+    for i in range(sets):
+        q, k, v = attn_inputs((rows, Lh, D), bf16, seed=200 + i, dev=dev)
+        m0, l0 = attn_inputs((rows, Lh), f32, seed=300 + i, dev=dev, n=2)
+        acc0 = attn_inputs((rows, Lh, D), f32, seed=400 + i, dev=dev, n=1)[0]
+        argsets.append((q, k, v, m0, l0.abs() + 1.0, acc0))
+    bases = (torch.arange(P, device=dev) * Lh, torch.zeros(P, dtype=torch.int64, device=dev))
+    got = fa.flash_attention_partial(*argsets[0], *bases)
+    want = fa.flash_attention_partial_plain(*argsets[0], *[b.tolist() for b in bases], False, bq, bk)
+    err = hold_state("flash_attention_partial bf16 round fold", got, want, bf16)
+    ms = device_ms(lambda *a: fa.flash_attention_partial(*a, *bases), argsets)
+    plain_ms = device_ms(lambda *a: fa.flash_attention_partial_plain(*a, 0, 0, False, bq, bk),
+                         argsets, per_graph=4, trials=3)
+    nbytes = 3 * rows * Lh * D * 2 + 2 * (2 * rows * Lh * 4) + 2 * rows * Lh * D * 4
+    b_ms, b_by = bound_ms(nbytes, attn_flops(Lh, Lh, D, rows, False), BF16_TC_OPS_PER_S)
+    results["partial"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                              bound_by=b_by, max_abs_err=err)
+    print(f"flash_attention_partial (bf16, {rows} x {Lh} x {D}, one ring round): "
+          f"{ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by {b_by}), plain {plain_ms * 1e3:.1f} us, "
+          f"library none: no single PyTorch call folds into a running softmax state")
+
+    kernel_rows = []
+    for name, key, replaces in (
+        ("flash_attention", "attention", "heat_tpu/parallel/flash_attention.py:137"),
+        ("flash_attention_partial", "partial", "heat_tpu/parallel/flash_attention.py:161"),
+    ):
+        r = results[key]
+        kernel_rows.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE, "replaces": replaces,
+            "launches": None, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    kernel_rows[0]["cases"] = {k: v for k, v in results.items() if k != "partial"}
+    return kernel_rows, metrics
+
+
+def phase_attention_path(torch, htt, fa, dev):
+    """Phase 6: ring, Ulysses and ring self-attention at POSITIONS positions
+    on the one card, through the entry points; returns the launch counts
+    and the path's metrics."""
+    from heat_tpu_torch import interop
+
+    par = htt.parallel
+    comm4 = htt.TorchCommunication([dev] * POSITIONS)
+    f32, bf16 = torch.float32, torch.bfloat16
+    counted = (fa.flash_attention, fa.flash_attention_partial)
+    for fn in counted:
+        fn.launches = 0
+
+    # ring, f32, non-causal: the contiguous flash fold
+    q, k, v = attn_inputs((RING_S, RING_H, ATTN_D), f32, seed=500, dev=dev)
+    qd, kd, vd = (htt.array(t, split=0, comm=comm4) for t in (q, k, v))
+    ring32 = par.ring_attention(qd, kd, vd, causal=False)
+    single32 = fa.flash_attention(q, k, v, False)
+    ref32 = dense64(q[None], k[None], v[None], False)[0]
+    # ring, bf16, causal: the zig-zag fold
+    qb, kb, vb = attn_inputs((ATTN_S, ATTN_H, ATTN_D), bf16, seed=501, dev=dev)
+    qbd, kbd, vbd = (htt.array(t, split=0, comm=comm4) for t in (qb, kb, vb))
+    ringz = par.ring_attention(qbd, kbd, vbd, causal=True)
+    uly = par.ulysses_attention(qbd, kbd, vbd, causal=True)
+    singleb = fa.flash_attention(qb, kb, vb, True)
+    refb = dense64(qb[None], kb[None], vb[None], True)[0]
+    # ring self-attention, f32: weights made by numpy, carried in through interop
+    rng = np.random.default_rng(502)
+    x_np = rng.normal(size=(ATTN_S, SELF_E)).astype(np.float32)
+    w_np = [(rng.normal(size=(SELF_E, ATTN_D)) / np.sqrt(SELF_E)).astype(np.float32) for _ in range(3)]
+    xd = interop.array_from_numpy(x_np, split=0, comm=comm4)
+    wd = [interop.array_from_numpy(w, comm=comm4) for w in w_np]
+    selfo = par.ring_self_attention(xd, *wd)
+    proj = [(xd.larray @ w.larray)[:, None, :] for w in wd]
+    single_self = fa.flash_attention(*proj, False)[:, 0]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"{POSITIONS} positions, attention: launches {launches} "
+          f"(expected flash_attention 4, flash_attention_partial 4 + 9 + 4 = 17)")
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the attention path")
+
+    for what, out, single, ref, tol in (
+        ("ring f32 contiguous", ring32, single32, ref32, F32_TOL),
+        ("ring bf16 zig-zag causal", ringz, singleb, refb, HALF_TOL),
+        ("ulysses bf16 causal", uly, singleb, refb, HALF_TOL),
+        ("ring self-attention f32", selfo, single_self, None, F32_TOL),
+    ):
+        check(tuple(out.shape) == tuple(single.shape) and bool(torch.isfinite(out).all()),
+              f"{what}: shape {tuple(out.shape)} or non-finite values")
+        e_single = max_abs_err(out.float(), single.float())
+        line = f"{what}: {e_single:.3g} from single-card flash_attention"
+        if out.dtype == f32:
+            check(e_single <= tol, f"{what}: {e_single:.3g} from single-card flash > {tol}")
+        if ref is not None:
+            e_ref = float((out.double() - ref).abs().max())
+            check(e_ref <= tol, f"{what}: {e_ref:.3g} from float64 dense > {tol}")
+            line += f", {e_ref:.3g} from float64 dense"
+        print(line)
+    check(bool(torch.equal(uly, singleb)), "ulysses != single-card flash_attention on the same global tensor")
+    xs = torch.from_numpy(x_np).double().to(dev)
+    ref_self = dense64(*[(xs @ torch.from_numpy(w).double().to(dev))[None, :, None, :] for w in w_np],
+                       False)[0, :, 0]
+    e = float((selfo.double() - ref_self).abs().max())
+    check(e <= F32_TOL, f"ring self-attention: {e:.3g} from float64 dense > {F32_TOL}")
+
+    metrics = {
+        "ring_attention_ms": wall_ms(lambda: par.ring_attention(qbd, kbd, vbd, causal=True), reps=9),
+        "ring_attention_f32_ms": wall_ms(lambda: par.ring_attention(qd, kd, vd, causal=False), reps=9),
+        "ulysses_attention_ms": wall_ms(lambda: par.ulysses_attention(qbd, kbd, vbd, causal=True), reps=9),
+    }
+    print(f"ring bf16 zig-zag causal {metrics['ring_attention_ms']:.3f} ms, ring f32 "
+          f"{metrics['ring_attention_f32_ms']:.3f} ms, ulysses bf16 causal "
+          f"{metrics['ulysses_attention_ms']:.3f} ms")
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -271,11 +593,16 @@ def main(argv=None) -> int:
 def run(dev, out_path=None) -> int:
     import torch
 
+    import importlib
+
     import heat_tpu_torch as htt
     from heat_tpu_torch import kernels
     from heat_tpu_torch.comm import compressed as cq
 
+    fa = importlib.import_module("heat_tpu_torch.parallel.flash_attention")
+
     lines = []
+    t_run = time.perf_counter()
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -284,9 +611,10 @@ def run(dev, out_path=None) -> int:
     card = card_line()
     print(f"build: {build_s:.1f} s ({built}); card: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    for line in kernels.build_log("blockquant").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
+    for name in ("blockquant", "flash_attention"):
+        for line in kernels.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas {name}:", line.strip())
 
     # ---------------------------------------------------------------- 2
     kernel_rows = phase_kernels(torch, cq, dev)
@@ -389,6 +717,15 @@ def run(dev, out_path=None) -> int:
           f"(bound {v_bound:.4g}); KMeans labels agree {agree:.6f}, max center shift "
           f"{shift:.4g} (bound {c_bound:.4g})")
 
+    # ---------------------------------------------------------------- 5
+    attn_rows, attn_metrics = phase_attention_kernels(torch, fa, dev)
+
+    # ---------------------------------------------------------------- 6
+    attn_launches, path_metrics = phase_attention_path(torch, htt, fa, dev)
+    for row in attn_rows:
+        row["launches"] = attn_launches[row["name"]]
+    kernel_rows += attn_rows
+
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
         "cdist_gb_per_s": SUB * SUB * 4 / cdist_ms / 1e6,
@@ -396,7 +733,10 @@ def run(dev, out_path=None) -> int:
         "allreduce_q_exact_payload_gb_per_s": PAYLOAD * 4 / allreduce_ms / 1e6,
         "kmeans_int8_4pos_iter_per_s": ITERS / fit4_ms * 1e3,
         "allreduce_q_ms": allreduce_ms,
+        **attn_metrics,
+        **path_metrics,
         "build_s": build_s,
+        "run_s": time.perf_counter() - t_run,
         "card": card,
     }
     lines.append(json.dumps({"metrics": metrics}))

@@ -3,7 +3,8 @@
 The analytics path of the JAX package on PyTorch: split DNDarrays over a
 communicator's positions, factories, the op engine, mean/var/std, cdist
 and KMeans, with the block-scaled int8 collectives as hand-written CUDA
-kernels for Hopper (``csrc/``).  Arrays live on the GPU by default; the
+kernels for Hopper (``csrc/``); and attention (``parallel``): flash,
+ring and Ulysses attention on the hand-written flash kernels.  Arrays live on the GPU by default; the
 CPU is used only when asked for (``use_device("cpu")``, ``device="cpu"``
 or a communicator of CPU positions).
 
@@ -23,4 +24,5 @@ from .core import types  # noqa: E402
 from . import comm  # noqa: E402
 from . import cluster  # noqa: E402
 from . import spatial  # noqa: E402
+from . import parallel  # noqa: E402
 from . import interop  # noqa: E402

@@ -8,4 +8,4 @@ from .devices import cpu, get_device, gpu, sanitize_device, use_device
 from .dndarray import DNDarray
 from .factories import *  # noqa: F401,F403
 from .statistics import *  # noqa: F401,F403
-from .types import bfloat16, bool, float32, float64, int32, int64, promote_types
+from .types import bfloat16, bool, float16, float32, float64, int32, int64, promote_types

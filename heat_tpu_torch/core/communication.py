@@ -219,6 +219,20 @@ class TorchCommunication:
             return array
         return self.pad_to_shards(array, axis=int(split) % array.ndim)
 
+    def alltoall(self, array: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+        """Move the split from ``concat_axis`` to ``split_axis``: every
+        position sends piece ``j`` of its shard (cut along ``split_axis``)
+        to position ``j``, which concatenates what it receives along
+        ``concat_axis`` (the reference's all-to-all, the Ulysses
+        head<->sequence swap).  The global tensor already holds every
+        shard, so the exchange is an identity on it: the result is
+        ``array`` with ``split_axis`` zero-padded to its canonical length
+        (no copy when it divides)."""
+        del concat_axis  # the global tensor is the same at either split
+        if self.size == 1 or array.ndim == 0:
+            return array
+        return self.pad_to_shards(array, axis=int(split_axis) % array.ndim)
+
     def ring_permute(self, array: torch.Tensor, shift: int = 1) -> torch.Tensor:
         """Rotate the axis-0 shards around the ring: position ``i``'s shard
         moves to position ``i + shift``.  A non-divisible axis is padded

@@ -1,12 +1,13 @@
 """The heat dtype lattice, on torch dtypes.
 
 Port of the part of ``heat_tpu/core/types.py`` the analytics path touches:
-the type classes ``bool``, ``int32``, ``int64``, ``float32``, ``float64``
-and ``bfloat16`` under the ``generic`` hierarchy, plus
+the type classes ``bool``, ``int32``, ``int64``, ``float32``, ``float64``,
+``bfloat16`` and ``float16`` under the ``generic`` hierarchy, plus
 :func:`canonical_heat_type`, :func:`heat_type_is_exact` and
 :func:`promote_types`.  Promotion is torch's, which agrees with the
-reference's lattice on every pair of these six types (int + float32 ->
-float32, int + bfloat16 -> bfloat16, bfloat16 + float32 -> float32).
+reference's lattice on every pair of these seven types (int + float32 ->
+float32, int + bfloat16 -> bfloat16, bfloat16 + float32 -> float32,
+float16 + float32 -> float32).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ __all__ = [
     "float32",
     "float64",
     "bfloat16",
+    "float16",
     "canonical_heat_type",
     "heat_type_is_exact",
     "heat_type_is_inexact",
@@ -87,12 +89,17 @@ class bfloat16(floating):
     _torch_type = torch.bfloat16
 
 
-_CONCRETE = (bool, int32, int64, float32, float64, bfloat16)
+class float16(floating):
+    _torch_type = torch.float16
+
+
+_CONCRETE = (bool, int32, int64, float32, float64, bfloat16, float16)
 _BY_TORCH = {t._torch_type: t for t in _CONCRETE}
 _BY_NAME = {t.__name__: t for t in _CONCRETE}
 _BY_NAME.update({
     "bool_": bool, "b": bool, "int": int32, "i4": int32, "long": int64,
     "i8": int64, "float": float32, "f4": float32, "double": float64, "f8": float64,
+    "half": float16, "f2": float16,
 })
 
 

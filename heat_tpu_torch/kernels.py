@@ -7,9 +7,14 @@ hash, so a changed source never loads a stale library.  Builds happen at
 first use (or all at once, in parallel, through :func:`build_all`), never
 at import; on a machine without ``nvcc`` nothing here runs.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, and IEEE arithmetic spelled out —
-no fast math, no flush of subnormals, IEEE division — because the
-block-quantization kernels must match their plain versions bit for bit.
+Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, no fast math,
+no flush of subnormals, IEEE division and square root; then each source's
+own flags (:data:`_SOURCE_FLAGS`).  ``blockquant.cu`` builds with
+``--fmad=false`` because the block-quantization kernels must match their
+plain versions bit for bit; ``flash_attention.cu`` builds with
+``--fmad=true``, since without FMA contraction every multiply-add of its
+products becomes two instructions.  The library's hash covers the source
+and its flags, so a changed flag never loads a stale library either.
 """
 
 from __future__ import annotations
@@ -30,10 +35,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    "--ftz=false", "--prec-div=true", "--prec-sqrt=true", "--fmad=false",
+    "--ftz=false", "--prec-div=true", "--prec-sqrt=true",
     "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+#: each source's own flags, after the shared ones
+_SOURCE_FLAGS: Dict[str, tuple] = {
+    "blockquant": ("--fmad=false",),
+    "flash_attention": ("--fmad=true",),
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -46,9 +56,14 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _flags(name: str) -> tuple:
+    return _NVCC_FLAGS + _SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update("\0".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, float]:
@@ -67,7 +82,7 @@ def build_all() -> Dict[str, float]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log, time.perf_counter())
     failed = []
     for name, (proc, tmp, out, log, t0) in procs.items():

@@ -9,7 +9,10 @@ Profiles, with ``torch.profiler`` (CPU and CUDA activity), one exact
 KMeans fit (500 000 x 32 blobs, k=8, 30 Lloyd steps) at one position, one
 cdist on 20 000 rows, and, at four positions on the one card under the
 ``int8_block`` policy, one allreduce of a (4, 2^20) payload and one
-error-feedback KMeans fit.  For each it prints the wall time, the summed
+error-feedback KMeans fit; then, at the reference benchmark's attention
+shape (S=4096, H=16, D=64, bf16, causal), one single-card
+``flash_attention`` call and one zig-zag ``ring_attention`` call at four
+positions.  For each it prints the wall time, the summed
 device time of the kernels and their share of the wall time (the device's
 busy share), and the kernels that take the most device time.
 """
@@ -106,6 +109,12 @@ def main() -> int:
         rows.append(profile(torch, "allreduce_q (4, 2^20), 4 positions",
                             lambda: comm4.allreduce(stacked, "sum")))
         rows.append(profile(torch, "kmeans int8_block, 4 positions", fit(X4, init4)))
+    q, k, v = cs.attn_inputs((cs.ATTN_S, cs.ATTN_H, cs.ATTN_D), torch.bfloat16, seed=501, dev=dev)
+    qd, kd, vd = (htt.array(t, split=0, comm=comm4) for t in (q, k, v))
+    rows.append(profile(torch, "flash_attention bf16 causal S=4096, 1 card",
+                        lambda: htt.parallel.flash_attention(q, k, v, causal=True)))
+    rows.append(profile(torch, "ring_attention bf16 zig-zag causal S=4096, 4 positions",
+                        lambda: htt.parallel.ring_attention(qd, kd, vd, causal=True), top=12))
     card = cs.card_line()
     print(card)
     if args.out:

@@ -11,13 +11,25 @@ Without a CUDA device every test here skips.  The inputs are the ones
 special block (zero, NaN, +-Inf, the 1e36 saturation block, subnormal
 and flushed-scale blocks, half-way ties), at odd row counts and at the
 main path's 8192 rows.  Kernel and plain version must agree bit for bit.
+
+The flash-attention kernels are held to their plain versions at the
+kernel's 64 x 64 tiles and to float64 dense attention, at the tolerances
+``chip_smoke.py`` states (float32 2e-5; bf16/f16 2 ulps of plain and 5e-2
+of dense; a partial chain 2e-6 of the full kernel), on small shapes and
+the edge cases of its phase 5, and each wrapper's launch count is checked
+per call.
 """
+
+import importlib
 
 import pytest
 import torch
 
 import chip_smoke
+import heat_tpu_torch as htt
 from heat_tpu_torch.comm import compressed as tcq
+
+fa = importlib.import_module("heat_tpu_torch.parallel.flash_attention")
 
 BLOCK = tcq.BLOCK
 
@@ -62,3 +74,94 @@ def test_wrappers_count_kernel_launches(cuda_device):
     tcq.quantize_blocks_plain(x.reshape(-1, BLOCK))
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1]
+
+
+def _plain(q, k, v, causal, q_base=0):
+    return fa.flash_attention_plain(q, k, v, causal, q_base, fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, causal, d):
+    q, k, v = chip_smoke.attn_inputs((2, 256, 2, d), dtype, seed=d, dev=cuda_device)
+    out = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    chip_smoke.hold(f"D={d} {dtype} causal={causal}", out, _plain(q, k, v, causal),
+                    chip_smoke.dense64(q, k, v, causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_q_base_with_longer_kv_on_card(cuda_device, dtype):
+    q, k, v = chip_smoke.attn_inputs((1, 512, 2, 64), dtype, seed=3, dev=cuda_device)
+    qs = q[:, 256:384]
+    out = fa.flash_attention(qs, k, v, True, q_base=256)
+    chip_smoke.hold("q_base", out, _plain(qs, k, v, True, 256),
+                    chip_smoke.dense64(q, k, v, True)[:, 256:384])
+
+
+def _state(rows, length, d, dev):
+    return (torch.full((rows, length), -float("inf"), device=dev),
+            torch.zeros((rows, length), device=dev), torch.zeros((rows, length, d), device=dev))
+
+
+@pytest.mark.gpu
+def test_partial_kernel_edge_cases_on_card(cuda_device):
+    BH, L, D = 8, 256, 64
+    q, k, v = chip_smoke.attn_inputs((BH, 2 * L, D), torch.float32, seed=4, dev=cuda_device)
+    st0 = _state(BH, L, D, cuda_device)
+    # a q tile wholly before its segment: the state comes back untouched
+    got = fa.flash_attention_partial(q[:, :L], k[:, L:], v[:, L:], *st0, 0, L, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, st0))
+    # per-position bases in one launch == one launch per position
+    bases = ([0, 256, 128, 0], [256, 0, 128, 0])
+    one = fa.flash_attention_partial(q[:, :L], k[:, :L], v[:, :L], *st0, *bases, causal=True)
+    for i in range(4):
+        sl = slice(2 * i, 2 * i + 2)
+        sep = fa.flash_attention_partial(q[sl, :L], k[sl, :L], v[sl, :L], *(t[sl] for t in st0),
+                                         bases[0][i], bases[1][i], causal=True)
+        assert all(torch.equal(a[sl], b) for a, b in zip(one, sep))
+    # a chain of two segments equals the full kernel
+    for causal in (False, True):
+        st = _state(BH, 2 * L, D, cuda_device)
+        for r in range(2):
+            sl = slice(r * L, (r + 1) * L)
+            st = fa.flash_attention_partial(q, k[:, sl], v[:, sl], *st, 0, r * L, causal=causal)
+        chained = st[2] / torch.clamp_min(st[1], 1e-30)[..., None]
+        full = fa.flash_attention(*(t.transpose(0, 1)[None] for t in (q, k, v)), causal)
+        assert chip_smoke.max_abs_err(chained, full[0].transpose(0, 1)) <= chip_smoke.CHAIN_TOL
+
+
+@pytest.mark.gpu
+def test_partial_kernel_matches_plain_on_card(cuda_device):
+    rows, L, D = 8, 256, 64
+    q, k, v = chip_smoke.attn_inputs((rows, L, D), torch.bfloat16, seed=5, dev=cuda_device)
+    st = _state(rows, L, D, cuda_device)
+    got = fa.flash_attention_partial(q, k, v, *st, [0, 128], [0, 0], causal=True)
+    want = fa.flash_attention_partial_plain(q, k, v, *st, [0, 128], [0, 0], True,
+                                            fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K)
+    chip_smoke.hold_state("partial bf16 causal", got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_count_kernel_launches(cuda_device):
+    p = 4
+    comm = htt.TorchCommunication([cuda_device] * p)
+    counted = (fa.flash_attention, fa.flash_attention_partial)
+    q, k, v = chip_smoke.attn_inputs((256 * p, 2, 32), torch.float32, seed=6, dev=cuda_device)
+
+    def count(fn):
+        before = [c.launches for c in counted]
+        fn()
+        torch.cuda.synchronize()
+        return [c.launches - b for c, b in zip(counted, before)]
+
+    assert count(lambda: fa.flash_attention(q, k, v, True)) == [1, 0]
+    assert count(lambda: fa.flash_attention_plain(q, k, v, True)) == [0, 0]
+    assert count(lambda: htt.parallel.ring_attention(q, k, v, False, comm=comm)) == [0, p]
+    assert count(lambda: htt.parallel.ring_attention(q, k, v, True, comm=comm)) == [0, 3 + 2 * (p - 1)]
+    q8, k8, v8 = chip_smoke.attn_inputs((256 * p, 2 * p, 32), torch.float32, seed=7, dev=cuda_device)
+    assert count(lambda: htt.parallel.ulysses_attention(q8, k8, v8, True, comm=comm)) == [1, 0]
