@@ -28,15 +28,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    before this phase and read after it, and each must be above 0;
 5. the flash-attention kernels (B3 ``flash_attention``, B4
    ``flash_attention_partial``) against their plain versions on the card
-   at the reference benchmark's attention shape (S=4096, H=16, D=64: bf16,
-   bf16 causal, f32 causal) and at edge cases (D 16/32/128, float16,
-   q_base > 0 with K/V longer than Q, a q tile wholly before its K/V
-   segment, a chain of two partial folds), each also against float64
-   dense attention, then timed beside their bound and, for B3, PyTorch's
-   ``scaled_dot_product_attention`` (timed as a yardstick only);
+   at the kernel's tiles (``kernel_blocks``) at the reference benchmark's
+   attention shape (S=4096, H=16, D=64: bf16, bf16 causal, f32 causal)
+   and at edge cases (D 8/16/32/40/128, float16, S=384, K/V of 640 rows
+   through the K/V ring, q_base 64 and 256 with K/V longer than Q, a q
+   tile wholly before its K/V segment, B4 at four positions on distinct
+   bases, B4 on the zig-zag ring's non-contiguous slices, a chain of two
+   partial folds), each also against float64 dense attention, then timed
+   beside their bound, their achieved TFLOP/s and, for B3, PyTorch's
+   ``scaled_dot_product_attention`` (timed as a yardstick only), with the
+   card's SM clock and power read right after the timed window;
 6. the attention path at FOUR positions on the one card: ring attention
    (f32 contiguous flash fold at S=2048, H=8; bf16 causal zig-zag fold at
-   S=4096, H=16), Ulysses (bf16 causal) and ring self-attention (f32,
+   S=4096, H=16, three calls back to back), Ulysses (bf16 causal) and ring self-attention (f32,
    x 4096 x 1024 and weights 1024 x 64 carried in through ``interop``),
    each held against single-card ``flash_attention`` or float64 dense
    attention; both kernels' launch counts are set to 0 before this phase
@@ -71,10 +75,13 @@ PAYLOAD = 1 << 20
 POSITIONS = 4
 BLOCK = 128
 #: H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor-core) rate and
-#: the bf16/fp16 dense tensor-core rate
+#: the bf16/fp16 and TF32 dense tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
+#: the float32 attention kernel runs 3xTF32: three TF32 products per product
+TF32_PASSES = 3
 FLT_MIN = float(np.finfo(np.float32).tiny)
 SOURCE = "heat_tpu_torch/csrc/blockquant.cu"
 ATTN_SOURCE = "heat_tpu_torch/csrc/flash_attention.cu"
@@ -91,13 +98,18 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
+    """One line of ``nvidia-smi --query-gpu=<query>`` for the first card."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
 
 
 def make_blobs():
@@ -378,26 +390,109 @@ def hold_state(what: str, got, want, dtype) -> float:
     return err
 
 
-def attn_flops(S: int, Sk: int, D: int, heads: int, causal: bool, tile: int = 64) -> float:
-    """4*S*Sk*D per head over the visited tiles: (n^2+n)/2 of n^2 tiles
-    under causal (S == Sk, square tiles)."""
-    ops = 4.0 * S * Sk * D * heads
-    if causal:
-        n = S // tile
-        ops *= (n * n + n) / 2 / (n * n)
-    return ops
+def attn_flops(S: int, Sk: int, D: int, heads: int, causal: bool) -> float:
+    """4*D operations per (query, key) pair per head (2 for QK^T, 2 for PV)
+    over the pairs the function needs, queries and keys both from position
+    0: all S * Sk, or under causal min(Sk, i + 1) keys for query row i."""
+    pairs = sum(min(Sk, i + 1) for i in range(S)) if causal else S * Sk
+    return 4.0 * D * heads * pairs
+
+
+def rate_line(ms: float, ops: float, b_ms: float) -> str:
+    """Achieved TFLOP/s (the algorithm's operations, not the passes) and
+    the share of the bound reached."""
+    return f"kernel: {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {b_ms / ms * 100:.1f} % of its bound"
+
+
+def _bshd(t):
+    """(heads, L, d) -> (1, L, heads, d), the layout of ``dense64``."""
+    return t.transpose(0, 1)[None]
+
+
+def check_partial_positions(fa, dev, dtype, d: int = 64, per: int = 2, L: int = 256) -> float:
+    """B4 at four positions on distinct bases in one launch.  From the
+    initial state, the normalized fold is held to the plain version at the
+    kernel's tiles and to float64 dense attention of each position's
+    queries over its segment; from a random state, to the plain version.
+    Position 0's queries lie wholly before its keys: its state comes back
+    bit for bit.  Returns the largest error of acc / l against plain."""
+    import torch
+
+    qb, kb = [0, 256, 64, 128], [256, 0, 0, 64]
+    P = len(qb)
+    blocks = fa.kernel_blocks(dtype)
+    q, k, v = attn_inputs((P * per, L, d), dtype, seed=11, dev=dev)
+    init = (torch.full((P * per, L), -float("inf"), device=dev),
+            torch.zeros((P * per, L), device=dev), torch.zeros((P * per, L, d), device=dev))
+    m0, l0 = attn_inputs((P * per, L), torch.float32, seed=12, dev=dev, n=2)
+    rand = (m0, l0.abs() + 1.0, attn_inputs((P * per, L, d), torch.float32, seed=13, dev=dev, n=1)[0])
+    errs = []
+    for what, st in (("initial", init), ("random", rand)):
+        got = fa.flash_attention_partial(q, k, v, *st, qb, kb, causal=True)
+        want = fa.flash_attention_partial_plain(q, k, v, *st, qb, kb, True, *blocks)
+        torch.cuda.synchronize()
+        errs.append(hold_state(f"partial 4 positions {dtype} D={d} ({what} state)", got, want,
+                               dtype))
+        check(all(bool(torch.equal(a[:per], b[:per])) for a, b in zip(got, st)),
+              f"partial 4 positions {dtype}: the fully masked position changed its state")
+        if what == "initial":
+            out = got[2] / torch.clamp_min(got[1], 1e-30)[..., None]
+            tol = F32_TOL if dtype == torch.float32 else HALF_TOL
+            for i in range(1, P):
+                sl = slice(i * per, (i + 1) * per)
+                ref = dense64(_bshd(q[sl]), _bshd(k[sl]), _bshd(v[sl]), True, qb[i] - kb[i])
+                err = float((out[sl].double() - ref[0].transpose(0, 1)).abs().max())
+                check(err <= tol, f"partial position {i} {dtype}: {err:.3g} from float64 dense > {tol}")
+    return max(errs)
+
+
+def check_partial_zigzag(fa, dev, dtype, p: int = 4, bh: int = 4, Lh: int = 128,
+                         d: int = 64) -> float:
+    """B4 on the zig-zag ring's operands: the halves of a (p, BH, 2Lh, D)
+    K/V buffer, handed over without a copy.  The diagonal fold (causal)
+    and the unmasked fold are each held to the plain version and to
+    float64 dense attention, and must equal the kernel on contiguous
+    copies bit for bit.  Returns the largest error against plain."""
+    import torch
+
+    blocks = fa.kernel_blocks(dtype)
+    kz, vz = attn_inputs((p, bh, 2 * Lh, d), dtype, seed=14, dev=dev, n=2)
+    q = attn_inputs((p * bh, Lh, d), dtype, seed=15, dev=dev, n=1)[0]
+    rows = lambda t: t.reshape((p * bh,) + tuple(t.shape[2:]))  # noqa: E731
+    base = (torch.arange(p, device=dev) * Lh).tolist()
+    errs = []
+    for half, causal in ((slice(0, Lh), True), (slice(Lh, 2 * Lh), False)):
+        ks, vs = rows(kz[:, :, half]), rows(vz[:, :, half])
+        check(not ks.is_contiguous() and ks.stride(0) == 2 * Lh * d, "zig-zag slice is a copy")
+        st = (torch.full((p * bh, Lh), -float("inf"), device=dev),
+              torch.zeros((p * bh, Lh), device=dev), torch.zeros((p * bh, Lh, d), device=dev))
+        got = fa.flash_attention_partial(q, ks, vs, *st, base, base, causal=causal)
+        copy = fa.flash_attention_partial(q, ks.contiguous(), vs.contiguous(), *st, base, base,
+                                          causal=causal)
+        want = fa.flash_attention_partial_plain(q, ks, vs, *st, base, base, causal, *blocks)
+        torch.cuda.synchronize()
+        what = f"partial zig-zag slices {dtype} causal={causal}"
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, copy)),
+              f"{what}: differs from the kernel on contiguous copies")
+        errs.append(hold_state(what, got, want, dtype))
+        out = got[2] / torch.clamp_min(got[1], 1e-30)[..., None]
+        ref = dense64(_bshd(q), _bshd(ks), _bshd(vs), causal)[0].transpose(0, 1)
+        err = float((out.double() - ref).abs().max())
+        tol = F32_TOL if dtype == torch.float32 else HALF_TOL
+        check(err <= tol, f"{what}: {err:.3g} from float64 dense > {tol}")
+    return max(errs)
 
 
 def phase_attention_kernels(torch, fa, dev):
-    """Phase 5: B3/B4 against their plain versions (at the kernel's 64 x 64
-    tiles) and float64 dense, at edge cases and the headline shape; then
-    timed.  Returns the two kernel rows and the three tokens/s metrics."""
-    bq, bk = fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K
-    plain = lambda q, k, v, c, qb=0: fa.flash_attention_plain(q, k, v, c, qb, bq, bk)  # noqa: E731
+    """Phase 5: B3/B4 against their plain versions (at the kernel's tiles)
+    and float64 dense, at edge cases and the headline shape; then timed.
+    Returns the two kernel rows and the three tokens/s metrics."""
+    plain = lambda q, k, v, c, qb=0: fa.flash_attention_plain(  # noqa: E731
+        q, k, v, c, qb, *fa.kernel_blocks(q.dtype))
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
 
     # -- edge cases at small shapes
-    for D in (16, 32, 128):
+    for D in (16, 32, 128, 8, 40):
         for dt in (f32, bf16):
             q, k, v = attn_inputs((1, 256, 2, D), dt, seed=D, dev=dev)
             hold(f"flash D={D} {dt} causal", fa.flash_attention(q, k, v, True),
@@ -406,10 +501,24 @@ def phase_attention_kernels(torch, fa, dev):
     hold("flash f16 causal B=2", fa.flash_attention(q, k, v, True), plain(q, k, v, True),
          dense64(q, k, v, True))
     for dt in (f32, bf16):
-        q, k, v = attn_inputs((1, 512, 2, 64), dt, seed=6, dev=dev)
-        qs = q[:, 256:384]
-        hold(f"flash q_base=256 Sq=128 Sk=512 {dt}", fa.flash_attention(qs, k, v, True, q_base=256),
-             plain(qs, k, v, True, 256), dense64(q, k, v, True)[:, 256:384])
+        q, k, v = attn_inputs((2, 384, 3, 64), dt, seed=8, dev=dev)
+        hold(f"flash S=384 {dt} causal", fa.flash_attention(q, k, v, True), plain(q, k, v, True),
+             dense64(q, k, v, True))
+        q, k, v = attn_inputs((1, 640, 2, 64), dt, seed=9, dev=dev)
+        qs = q[:, 512:]
+        hold(f"flash Sq=128 Sk=640 q_base=512 {dt} causal",
+             fa.flash_attention(qs, k, v, True, q_base=512), plain(qs, k, v, True, 512),
+             dense64(q, k, v, True)[:, 512:])
+        for lo, Sk in ((256, 512), (64, 384)):
+            q, k, v = attn_inputs((1, Sk, 2, 64), dt, seed=6, dev=dev)
+            qs = q[:, lo:lo + 128]
+            hold(f"flash q_base={lo} Sq=128 Sk={Sk} {dt}",
+                 fa.flash_attention(qs, k, v, True, q_base=lo), plain(qs, k, v, True, lo),
+                 dense64(q, k, v, True)[:, lo:lo + 128])
+    for dt in (f32, bf16, f16):
+        check_partial_positions(fa, dev, dt, d=40)
+    for dt in (f32, bf16):
+        check_partial_zigzag(fa, dev, dt)
 
     BH, L, D = 8, 256, 64
     q, k, v = attn_inputs((BH, 2 * L, D), f32, seed=7, dev=dev)
@@ -446,19 +555,25 @@ def phase_attention_kernels(torch, fa, dev):
         err = hold(f"flash S={S} H={H} D={D} {dt} causal={causal}", out, plain(q, k, v, causal),
                    dense64(q, k, v, causal))
         ms = device_ms(lambda a, b, c: fa.flash_attention(a, b, c, causal), argsets)
+        clocks = smi("clocks.sm,power.draw,power.limit")
         plain_ms = device_ms(lambda a, b, c: plain(a, b, c, causal), argsets, per_graph=2, trials=3)
         lib_ms = device_ms(
             lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
                 a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2), is_causal=causal),
             argsets)
         nbytes = 4 * S * H * D * q.element_size()
-        ops_rate = FP32_OPS_PER_S if dt == f32 else BF16_TC_OPS_PER_S
-        b_ms, b_by = bound_ms(nbytes, attn_flops(S, S, D, H, causal), ops_rate)
+        ops = attn_flops(S, S, D, H, causal)
+        if dt == f32:  # 3xTF32: three tensor-core passes per product
+            b_ms, b_by = bound_ms(nbytes, TF32_PASSES * ops, TF32_TC_OPS_PER_S)
+        else:
+            b_ms, b_by = bound_ms(nbytes, ops, BF16_TC_OPS_PER_S)
         results[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                             bound_by=b_by, max_abs_err=err)
         metrics[f"{key}_tokens_per_s"] = S / (ms / 1e3)
+        print(f"clocks.sm, power.draw, power.limit right after timing {key}: {clocks}")
         print(f"flash_attention {key}: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by {b_by}), "
-              f"plain {plain_ms * 1e3:.1f} us, scaled_dot_product_attention {lib_ms * 1e3:.1f} us")
+              f"plain {plain_ms * 1e3:.1f} us, scaled_dot_product_attention {lib_ms * 1e3:.1f} us; "
+              + rate_line(ms, ops, b_ms))
 
     # B4 at the zig-zag ring's round fold: 4 positions x 16 heads, Lh = 512
     P, Lh = POSITIONS, ATTN_S // POSITIONS // 2
@@ -470,19 +585,25 @@ def phase_attention_kernels(torch, fa, dev):
         acc0 = attn_inputs((rows, Lh, D), f32, seed=400 + i, dev=dev, n=1)[0]
         argsets.append((q, k, v, m0, l0.abs() + 1.0, acc0))
     bases = (torch.arange(P, device=dev) * Lh, torch.zeros(P, dtype=torch.int64, device=dev))
+    blocks = fa.kernel_blocks(bf16)
     got = fa.flash_attention_partial(*argsets[0], *bases)
-    want = fa.flash_attention_partial_plain(*argsets[0], *[b.tolist() for b in bases], False, bq, bk)
+    want = fa.flash_attention_partial_plain(*argsets[0], *[b.tolist() for b in bases], False, *blocks)
     err = hold_state("flash_attention_partial bf16 round fold", got, want, bf16)
     ms = device_ms(lambda *a: fa.flash_attention_partial(*a, *bases), argsets)
-    plain_ms = device_ms(lambda *a: fa.flash_attention_partial_plain(*a, 0, 0, False, bq, bk),
+    clocks = smi("clocks.sm,power.draw,power.limit")
+    plain_ms = device_ms(lambda *a: fa.flash_attention_partial_plain(*a, 0, 0, False, *blocks),
                          argsets, per_graph=4, trials=3)
     nbytes = 3 * rows * Lh * D * 2 + 2 * (2 * rows * Lh * 4) + 2 * rows * Lh * D * 4
-    b_ms, b_by = bound_ms(nbytes, attn_flops(Lh, Lh, D, rows, False), BF16_TC_OPS_PER_S)
+    ops = attn_flops(Lh, Lh, D, rows, False)
+    b_ms, b_by = bound_ms(nbytes, ops, BF16_TC_OPS_PER_S)
     results["partial"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                               bound_by=b_by, max_abs_err=err)
+    print(f"clocks.sm, power.draw, power.limit right after timing partial: {clocks}")
     print(f"flash_attention_partial (bf16, {rows} x {Lh} x {D}, one ring round): "
           f"{ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us by {b_by}), plain {plain_ms * 1e3:.1f} us, "
-          f"library none: no single PyTorch call folds into a running softmax state")
+          f"library none: no single PyTorch call folds into a running softmax state; "
+          + rate_line(ms, ops, b_ms)
+          + f", {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
 
     kernel_rows = []
     for name, key, replaces in (
@@ -522,7 +643,10 @@ def phase_attention_path(torch, htt, fa, dev):
     # ring, bf16, causal: the zig-zag fold
     qb, kb, vb = attn_inputs((ATTN_S, ATTN_H, ATTN_D), bf16, seed=501, dev=dev)
     qbd, kbd, vbd = (htt.array(t, split=0, comm=comm4) for t in (qb, kb, vb))
-    ringz = par.ring_attention(qbd, kbd, vbd, causal=True)
+    # three calls back to back, no sync between: each fold's state must be
+    # complete when the next kernel reads it
+    ringzs = [par.ring_attention(qbd, kbd, vbd, causal=True) for _ in range(3)]
+    ringz = ringzs[0]
     uly = par.ulysses_attention(qbd, kbd, vbd, causal=True)
     singleb = fa.flash_attention(qb, kb, vb, True)
     refb = dense64(qb[None], kb[None], vb[None], True)[0]
@@ -538,13 +662,14 @@ def phase_attention_path(torch, htt, fa, dev):
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
     print(f"{POSITIONS} positions, attention: launches {launches} "
-          f"(expected flash_attention 4, flash_attention_partial 4 + 9 + 4 = 17)")
+          f"(expected flash_attention 4, flash_attention_partial 4 + 3 x 9 + 4 = 35)")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the attention path")
 
     for what, out, single, ref, tol in (
         ("ring f32 contiguous", ring32, single32, ref32, F32_TOL),
-        ("ring bf16 zig-zag causal", ringz, singleb, refb, HALF_TOL),
+        *((f"ring bf16 zig-zag causal, call {i + 1}", r, singleb, refb, HALF_TOL)
+          for i, r in enumerate(ringzs)),
         ("ulysses bf16 causal", uly, singleb, refb, HALF_TOL),
         ("ring self-attention f32", selfo, single_self, None, F32_TOL),
     ):
@@ -612,9 +737,14 @@ def run(dev, out_path=None) -> int:
     print(f"build: {build_s:.1f} s ({built}); card: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     for name in ("blockquant", "flash_attention"):
-        for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"ptxas {name}:", line.strip())
+        for row in kernels.ptxas_report(name):
+            print(f"ptxas {name}: {row['entry']}: {row['registers']} registers, spill stores "
+                  f"{row['spill_stores']} B, spill loads {row['spill_loads']} B"
+                  + "".join(f"; {w}" for w in row["warnings"]))
+    half = [r for r in kernels.ptxas_report("flash_attention")
+            if "__nv_bfloat16" in r["entry"] or "6__half" in r["entry"]]
+    check(bool(half) and all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in half),
+          "ptxas: no bf16/f16 flash instantiation reported, or one spills")
 
     # ---------------------------------------------------------------- 2
     kernel_rows = phase_kernels(torch, cq, dev)

@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, ``build/kernels/lib<name>-<hash>.so`` next to the
-package, and loads with :mod:`ctypes`.  The hash is the source's content
-hash, so a changed source never loads a stale library.  Builds happen at
+package, and loads with :mod:`ctypes`.  The hash covers the source and
+every header in ``csrc/`` (``*.cuh``, which the sources include), so a
+changed source or header never loads a stale library.  Builds happen at
 first use (or all at once, in parallel, through :func:`build_all`), never
 at import; on a machine without ``nvcc`` nothing here runs.
 
@@ -13,8 +14,11 @@ own flags (:data:`_SOURCE_FLAGS`).  ``blockquant.cu`` builds with
 ``--fmad=false`` because the block-quantization kernels must match their
 plain versions bit for bit; ``flash_attention.cu`` builds with
 ``--fmad=true``, since without FMA contraction every multiply-add of its
-products becomes two instructions.  The library's hash covers the source
-and its flags, so a changed flag never loads a stale library either.
+products becomes two instructions.  The library's hash covers the flags
+too, so a changed flag never loads a stale library either.
+
+``ptxas_report`` reads the registers and spills of each compiled kernel
+from the build log (``nvcc -Xptxas -v``).
 """
 
 from __future__ import annotations
@@ -22,12 +26,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
-__all__ = ["CSRC", "BUILD_DIR", "build_all", "build_log", "library"]
+__all__ = ["CSRC", "BUILD_DIR", "build_all", "build_log", "library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -61,7 +66,11 @@ def _flags(name: str) -> tuple:
 
 
 def _target(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``: its name hashes the source, every
+    ``csrc/*.cuh`` header (by name and content) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -102,6 +111,32 @@ def build_log(name: str) -> str:
     """The compiler's output for ``csrc/<name>.cu``'s library."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """Per compiled kernel of ``csrc/<name>.cu``'s library, from its build
+    log: ``{"entry", "registers", "spill_stores", "spill_loads"}`` (bytes
+    of spills), plus any ptxas warning about it under ``"warnings"``."""
+    rows: List[dict] = []
+    cur = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1), "registers": None, "spill_stores": None,
+                   "spill_loads": None, "warnings": []}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        if "warning" in line.lower():
+            cur["warnings"].append(line.strip())
+    return rows
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -8,8 +8,9 @@ folds one K/V segment into a running streaming-softmax state (m, l, acc)
 and returns it un-normalized, the per-round engine of ring attention.
 
 On a CUDA tensor both launch the hand-written kernel of
-``csrc/flash_attention.cu`` (one block per (bh, 64-row query tile), a loop
-over 64-row K/V tiles inside it) and raise if the launch fails; on a CPU
+``csrc/flash_attention.cu`` (one block per (bh, 128-row query tile), a loop
+over K/V tiles of :func:`kernel_blocks` rows inside it, fed by TMA through
+a shared-memory ring) and raise if the launch fails; on a CPU
 tensor they run the plain PyTorch versions, :func:`flash_attention_plain`
 and :func:`flash_attention_partial_plain`, which fold the same chunks in
 the same order as the reference's ``_stream_kv`` at the caller's
@@ -18,7 +19,9 @@ the same order as the reference's ``_stream_kv`` at the caller's
 as the reference's fallback does.
 
 Numerics (the reference's ``_matmul_precision``): float32 inputs run both
-products at true float32 (no TF32 anywhere), bfloat16/float16 operands run
+products at float32 accuracy (the kernel splits each operand into two TF32
+parts and sums three tensor-core products, 3xTF32, as the reference's
+HIGHEST runs several bf16 passes on the TPU), bfloat16/float16 operands run
 as themselves with a float32 accumulator; the softmax state is float32, the
 scale is ``float32(1/sqrt(D))``, and ``p`` drops to the input dtype before
 the PV product while ``l`` sums the float32 ``p``.
@@ -35,18 +38,13 @@ import numpy as np
 import torch
 
 __all__ = [
-    "KERNEL_BLOCK_K",
-    "KERNEL_BLOCK_Q",
     "conforms",
     "flash_attention",
     "flash_attention_partial",
     "flash_attention_partial_plain",
     "flash_attention_plain",
+    "kernel_blocks",
 ]
-
-#: the CUDA kernel's tile sizes (query rows per block, key rows per tile)
-KERNEL_BLOCK_Q = 64
-KERNEL_BLOCK_K = 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -77,6 +75,16 @@ def _pick_block(s: int, target: int) -> int:
     while b > 128 and s % b:
         b //= 2
     return b if s % b == 0 else 128
+
+
+def kernel_blocks(dtype: torch.dtype) -> Tuple[int, int]:
+    """The CUDA kernel's ``(block_q, block_k)`` for this dtype: 128-row query
+    tiles, and K/V tiles of 128 rows in bfloat16 and float16, 64 in float32
+    (two stages of 128 float32 rows at D = 128 do not fit in shared memory).
+    The kernel folds at these tiles whatever ``block_q``/``block_k`` its
+    caller passes; hold it to the plain versions at these.  The library
+    reports its own tiles, and :func:`_declare` checks them against these."""
+    return (128, 64) if dtype == torch.float32 else (128, 128)
 
 
 def conforms(seq_len: int, d: int, dtype: torch.dtype) -> bool:
@@ -239,27 +247,41 @@ def flash_attention_partial_plain(
 # --------------------------------------------------------------------- #
 # the CUDA kernel                                                          #
 # --------------------------------------------------------------------- #
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The flash-attention library, built on first use, with its C
-    signature declared."""
-    from .. import kernels
-
-    lib = kernels.library("flash_attention")
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a flash-attention library and check that
+    its tiles are :func:`kernel_blocks`'."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
         [i32, i32, i32] + [ptr] * 11 + [i32, ctypes.POINTER(ctypes.c_int64)]
-        + [i32] * 6 + [ctypes.c_float, ptr]
+        + [i32] * 5 + [ctypes.c_float, ptr]
     )
     lib.flash_attention_launch.restype = i32
+    lib.flash_attention_tiles.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.flash_attention_tiles.restype = i32
+    for dtype, code in _DTYPE_CODE.items():
+        bq, bk = i32(), i32()
+        lib.flash_attention_tiles(code, ctypes.byref(bq), ctypes.byref(bk))
+        if (bq.value, bk.value) != kernel_blocks(dtype):
+            raise RuntimeError(f"flash_attention library tiles ({bq.value}, {bk.value}) for "
+                               f"{dtype} differ from kernel_blocks {kernel_blocks(dtype)}")
     return lib
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The flash-attention library, built on first use, declared."""
+    from .. import kernels
+
+    return _declare(kernels.library("flash_attention"))
+
+
 def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with unit stride on its last axis, every other stride a
-    whole number of 16-byte vectors and a 16-byte aligned start."""
+    """``t`` as TMA takes it: unit stride on its last axis, every other
+    stride a whole, nonzero number of 16-byte vectors (an axis of extent 1
+    excepted) and a 16-byte aligned start."""
     vec = 16 // t.element_size()
-    if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % 16:
+    bad = any(st % vec or (st == 0 and n > 1) for st, n in zip(t.stride()[:-1], t.shape[:-1]))
+    if t.stride(-1) != 1 or bad or t.data_ptr() % 16:
         t = t.contiguous()
         if t.data_ptr() % 16:
             t = t.clone()
@@ -267,8 +289,10 @@ def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(name, *, dtype, partial, causal, q, k, v, o, state_in, state_out, bases,
-            q_base, layouts, z, b, h, lq, lk, d):
-    strides = (ctypes.c_int64 * 16)(*[int(x) for lay in layouts for x in lay])
+            q_base, layouts, outer, h, lq, lk, d):
+    """One kernel launch; ``layouts`` are the (outer, h, row) element
+    strides of q, k, v and o, each viewed as (outer, h, rows, d)."""
+    strides = (ctypes.c_int64 * 12)(*[int(x) for lay in layouts for x in lay])
     m_in, l_in, acc_in = state_in if state_in else (None, None, None)
     m_out, l_out, acc_out = state_out if state_out else (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -277,16 +301,16 @@ def _launch(name, *, dtype, partial, causal, q, k, v, o, state_in, state_out, ba
         rc = _lib().flash_attention_launch(
             _DTYPE_CODE[dtype], int(partial), int(causal), ptr(q), ptr(k), ptr(v), ptr(o),
             ptr(m_in), ptr(l_in), ptr(acc_in), ptr(m_out), ptr(l_out), ptr(acc_out),
-            ptr(bases), int(q_base), strides, z, b, h, lq, lk, d, _scale(d), stream,
+            ptr(bases), int(q_base), strides, outer, h, lq, lk, d, _scale(d), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
 def _bshd_layout(t: torch.Tensor):
-    """(z, b, h, s) element strides of a (B, S, H, D) tensor."""
+    """(outer, h, row) element strides of a (B, S, H, D) tensor."""
     sb, ss, sh, _ = t.stride()
-    return (0, sb, sh, ss)
+    return (sb, sh, ss)
 
 
 def flash_attention(
@@ -297,10 +321,10 @@ def flash_attention(
 
     ``q_base`` offsets the causal mask's query positions (a sequence-sharded
     local block; K/V may be longer than Q).  A CUDA tensor launches the
-    ``flash_attention`` kernel (64 x 64 tiles, whatever ``block_q`` and
-    ``block_k`` say) and raises if the launch fails; a CPU tensor runs
-    :func:`flash_attention_plain` at ``block_q``/``block_k``; a shape or
-    dtype the kernel does not take (:func:`conforms`) runs
+    ``flash_attention`` kernel (at :func:`kernel_blocks`, whatever
+    ``block_q`` and ``block_k`` say) and raises if the launch fails; a CPU
+    tensor runs :func:`flash_attention_plain` at ``block_q``/``block_k``; a
+    shape or dtype the kernel does not take (:func:`conforms`) runs
     :func:`_dense_attention`."""
     batched = q.ndim == 4
     if not batched:
@@ -319,7 +343,7 @@ def flash_attention(
             "flash_attention", dtype=q.dtype, partial=False, causal=causal, q=q, k=k, v=v,
             o=out, state_in=None, state_out=None, bases=None, q_base=q_base,
             layouts=[_bshd_layout(t) for t in (q, k, v, out)],
-            z=1, b=B, h=H, lq=S, lk=Sk, d=D,
+            outer=B, h=H, lq=S, lk=Sk, d=D,
         )
         flash_attention.launches += 1
     else:
@@ -387,12 +411,14 @@ def flash_attention_partial(
     heads = bh // positions
     q, k, v = (_rows_aligned(t) for t in (q, k, v))
     m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
+    if acc.data_ptr() % 16:  # TMA moves the state: a 16-byte aligned start
+        acc = acc.clone()
     m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
-    layouts = [(t.stride(0) * heads, 0, t.stride(0), t.stride(1)) for t in (q, k, v)]
+    layouts = [(t.stride(0) * heads, t.stride(0), t.stride(1)) for t in (q, k, v)]
     _launch(
         "flash_attention_partial", dtype=q.dtype, partial=True, causal=causal, q=q, k=k, v=v,
         o=None, state_in=(m, l, acc), state_out=(m_out, l_out, acc_out), bases=bases,
-        q_base=0, layouts=layouts + [(0, 0, 0, 0)], z=positions, b=1, h=heads,
+        q_base=0, layouts=layouts + [(0, 0, 0)], outer=positions, h=heads,
         lq=lq, lk=lk, d=d,
     )
     flash_attention_partial.launches += 1

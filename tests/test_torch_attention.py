@@ -43,6 +43,7 @@ from heat_tpu_torch.parallel.flash_attention import (
     conforms as tconforms,
     flash_attention as tflash,
     flash_attention_partial as tpartial,
+    kernel_blocks,
 )
 
 F32, BF16 = 2e-5, 5e-2
@@ -198,6 +199,67 @@ def test_partial_per_position_bases_equal_separate_calls():
             assert torch.equal(a, b)
     # position 0: q rows [0, 128) before keys [128, 256): untouched
     assert torch.equal(m[:per], st[0][:per]) and torch.equal(acc[:per], st[2][:per])
+
+
+# --------------------------------------------------------------------- #
+# the plain versions at the CUDA kernel's tiles (kernel_blocks)           #
+# --------------------------------------------------------------------- #
+_TDT = {"float32": (torch.float32, jnp.float32, F32), "bfloat16": (torch.bfloat16, jnp.bfloat16, BF16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_at_kernel_tiles_matches_reference(dtype, causal):
+    # S = 384 (three query tiles) and D = 40 (padded by the kernel)
+    tdt, jdt, tol = _TDT[dtype]
+    bq, bk = kernel_blocks(tdt)
+    q, k, v = _inputs((384, 2, 40), seed=20)
+    got = tflash(*(_t(x, tdt) for x in (q, k, v)), causal=causal, block_q=bq, block_k=bk)
+    want = jflash(*(_j(x, jdt) for x in (q, k, v)), causal=causal, interpret=True,
+                  block_q=bq, block_k=bk)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=tol)
+    np.testing.assert_allclose(_np(got), _dense(q, k, v, causal), atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lo", [64, 192])
+def test_flash_at_kernel_tiles_q_base_mid_tile(dtype, lo):
+    # the diagonal crosses the middle of a 128-row query tile
+    tdt, jdt, tol = _TDT[dtype]
+    bq, bk = kernel_blocks(tdt)
+    q, k, v = _inputs((384, 2, 32), seed=21)
+    kw = dict(causal=True, q_base=lo, block_q=bq, block_k=bk)
+    got = tflash(_t(q[lo:lo + 128], tdt), _t(k, tdt), _t(v, tdt), **kw)
+    want = jflash(_j(q[lo:lo + 128], jdt), _j(k, jdt), _j(v, jdt), interpret=True, **kw)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=tol)
+    np.testing.assert_allclose(_np(got), _dense(q, k, v, True)[lo:lo + 128], atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_partial_at_kernel_tiles_matches_reference(dtype):
+    # four positions, one base pair each, from a running state; position 0's
+    # queries lie wholly before its keys and keep the state
+    tdt, jdt, tol = _TDT[dtype]
+    P, per, L, D = 4, 2, 256, 24
+    bq, bk = kernel_blocks(tdt)
+    qb, kb = [0, 256, 64, 128], [256, 0, 0, 64]
+    q, k, v = _inputs((P * per, L, D), seed=22)
+    rng = np.random.default_rng(23)
+    m0 = rng.normal(size=(P * per, L)).astype(np.float32)
+    l0 = (np.abs(rng.normal(size=(P * per, L))) + 1).astype(np.float32)
+    acc0 = rng.normal(size=(P * per, L, D)).astype(np.float32)
+    m, l, acc = tpartial(_t(q, tdt), _t(k, tdt), _t(v, tdt), _t(m0), _t(l0), _t(acc0),
+                         q_base=qb, k_base=kb, causal=True, block_q=bq, block_k=bk)
+    for i in range(P):
+        sl = slice(i * per, (i + 1) * per)
+        jm, jl, jacc = jpartial(_j(q[sl], jdt), _j(k[sl], jdt), _j(v[sl], jdt), _j(m0[sl]),
+                                _j(l0[sl]), _j(acc0[sl]), q_base=qb[i], k_base=kb[i],
+                                causal=True, interpret=True, block_q=bq, block_k=bk)
+        np.testing.assert_allclose(m[sl].numpy(), np.asarray(jm), rtol=F32, atol=F32)
+        np.testing.assert_allclose(l[sl].numpy(), np.asarray(jl), rtol=F32, atol=F32)
+        out = (acc[sl] / l[sl][..., None]).numpy()
+        np.testing.assert_allclose(out, np.asarray(jacc) / np.asarray(jl)[..., None], atol=tol)
+    assert torch.equal(m[:per], _t(m0[:per])) and torch.equal(acc[:per], _t(acc0[:per]))
 
 
 _BOUNDS_CASES = [

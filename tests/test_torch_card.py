@@ -13,11 +13,15 @@ and flushed-scale blocks, half-way ties), at odd row counts and at the
 main path's 8192 rows.  Kernel and plain version must agree bit for bit.
 
 The flash-attention kernels are held to their plain versions at the
-kernel's 64 x 64 tiles and to float64 dense attention, at the tolerances
-``chip_smoke.py`` states (float32 2e-5; bf16/f16 2 ulps of plain and 5e-2
-of dense; a partial chain 2e-6 of the full kernel), on small shapes and
-the edge cases of its phase 5, and each wrapper's launch count is checked
-per call.
+kernel's tiles (``kernel_blocks``: 128-row query tiles, 128-row K/V tiles
+in bf16/f16 and 64 in float32) and to float64 dense attention, at the
+tolerances ``chip_smoke.py`` states (float32 2e-5; bf16/f16 2 ulps of
+plain and 5e-2 of dense; a partial chain 2e-6 of the full kernel), on
+small shapes and the edge cases of its phase 5: an odd count of query
+tiles, a K/V ring that wraps past its stages, diagonal tiles that straddle
+mid-tile, head widths that TMA pads with zeros, four positions on distinct
+bases (one fully masked) and the zig-zag ring's non-contiguous slices.
+Each wrapper's launch count is checked per call.
 """
 
 import importlib
@@ -77,13 +81,14 @@ def test_wrappers_count_kernel_launches(cuda_device):
 
 
 def _plain(q, k, v, causal, q_base=0):
-    return fa.flash_attention_plain(q, k, v, causal, q_base, fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K)
+    return fa.flash_attention_plain(q, k, v, causal, q_base,
+                                    *fa.kernel_blocks(q.dtype))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 8, 40])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, causal, d):
     q, k, v = chip_smoke.attn_inputs((2, 256, 2, d), dtype, seed=d, dev=cuda_device)
     out = fa.flash_attention(q, k, v, causal)
@@ -101,6 +106,40 @@ def test_flash_q_base_with_longer_kv_on_card(cuda_device, dtype):
     out = fa.flash_attention(qs, k, v, True, q_base=256)
     chip_smoke.hold("q_base", out, _plain(qs, k, v, True, 256),
                     chip_smoke.dense64(q, k, v, True)[:, 256:384])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_odd_query_tile_count_on_card(cuda_device, dtype, causal):
+    # S = 384: three 128-row query tiles
+    q, k, v = chip_smoke.attn_inputs((2, 384, 3, 64), dtype, seed=8, dev=cuda_device)
+    chip_smoke.hold("S=384", fa.flash_attention(q, k, v, causal), _plain(q, k, v, causal),
+                    chip_smoke.dense64(q, k, v, causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kv_ring_wraps_on_card(cuda_device, dtype, causal):
+    # Lk = 640: 5 (bf16/f16) or 10 (f32) K/V tiles through a 2-stage ring;
+    # the query block sits at the end of the keys under causal
+    q, k, v = chip_smoke.attn_inputs((1, 640, 2, 64), dtype, seed=9, dev=cuda_device)
+    qs = q[:, 512:]
+    chip_smoke.hold("Lk=640", fa.flash_attention(qs, k, v, causal, q_base=512),
+                    _plain(qs, k, v, causal, 512), chip_smoke.dense64(q, k, v, causal)[:, 512:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lo", [64, 192])
+def test_flash_diagonal_straddles_mid_tile_on_card(cuda_device, dtype, lo):
+    # q_base = 64 or 192 with K/V longer than Q: the diagonal crosses the
+    # middle of a query tile and of a K/V tile
+    q, k, v = chip_smoke.attn_inputs((1, 384, 2, 64), dtype, seed=10, dev=cuda_device)
+    qs = q[:, lo:lo + 128]
+    chip_smoke.hold(f"q_base={lo}", fa.flash_attention(qs, k, v, True, q_base=lo),
+                    _plain(qs, k, v, True, lo), chip_smoke.dense64(q, k, v, True)[:, lo:lo + 128])
 
 
 def _state(rows, length, d, dev):
@@ -142,8 +181,37 @@ def test_partial_kernel_matches_plain_on_card(cuda_device):
     st = _state(rows, L, D, cuda_device)
     got = fa.flash_attention_partial(q, k, v, *st, [0, 128], [0, 0], causal=True)
     want = fa.flash_attention_partial_plain(q, k, v, *st, [0, 128], [0, 0], True,
-                                            fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K)
+                                            *fa.kernel_blocks(torch.bfloat16))
     chip_smoke.hold_state("partial bf16 causal", got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_partial_four_positions_on_card(cuda_device, dtype):
+    # four positions on distinct bases in one launch; position 0's queries
+    # lie wholly before its keys (fully masked: its state comes back as
+    # it went in, bit for bit)
+    chip_smoke.check_partial_positions(fa, cuda_device, dtype, d=40)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partial_zigzag_slices_on_card(cuda_device, dtype):
+    # the zig-zag ring's operands: halves of a (p, BH, 2Lh, D) buffer,
+    # handed over without a copy
+    chip_smoke.check_partial_zigzag(fa, cuda_device, dtype)
+
+
+@pytest.mark.gpu
+def test_zigzag_ring_back_to_back_on_card(cuda_device):
+    # ring rounds of 512 rows (four K/V tiles: the ring's third stage holds
+    # the state first, then a K/V tile), calls back to back with no sync
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    q, k, v = chip_smoke.attn_inputs((4096, 4, 64), torch.bfloat16, seed=11, dev=cuda_device)
+    outs = [htt.parallel.ring_attention(q, k, v, True, comm=comm) for _ in range(4)]
+    ref = chip_smoke.dense64(q[None], k[None], v[None], True)[0]
+    for out in outs:
+        assert float((out.double() - ref).abs().max()) <= chip_smoke.HALF_TOL
 
 
 @pytest.mark.gpu
