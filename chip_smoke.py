@@ -11,11 +11,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 1. build the CUDA kernels from ``heat_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card,
-   bitwise, at the main path's shape (8192 rows = 2^20 values) and at odd
-   row counts, on random and special blocks (zero, NaN, +-Inf, the 1e36
-   saturation block, subnormal, flushed scales, near FLT_MAX, ties), and
-   time kernel, plain version and, where one exists, the single PyTorch
-   call computing the same function;
+   bitwise, at the main path's shape (8192 rows = 2^20 values), at odd
+   row counts, at the KMeans error-feedback ring's 4 and 8 rows, at 8191
+   and 8193 rows (not a multiple of the quantize kernels' slab) and at
+   2^17 rows (every CTA of the capped grid walks several slabs), on
+   random and special blocks (zero, NaN, +-Inf, the 1e36 saturation
+   block, subnormal, flushed scales, near FLT_MAX, ties); then time
+   kernel, plain version and, where one exists, the single PyTorch call
+   computing the same function, the ring hop's kernel beside the two
+   launches it replaces (dequantize_fma + quantize, in the same CUDA
+   graph), and quantize and the hop at the KMeans ring's 4 and 8 rows
+   (their launch floor); quantize, the hop and the pair are timed both
+   back to back and as the main path launches them, behind a ring hop's
+   rolls (``after_roll_ms``: the time each adds behind them);
 3. the main path at ONE position, exact: 500 000 x 32 float32 blobs
    split over rows, mean/std, cdist on 20 000 rows, KMeans (k=8, 30
    Lloyd steps, explicit initial centers) and predict, checked against
@@ -24,8 +32,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``int8_block`` policy: allreduce of a (4, 2^20) payload, mean/var/std,
    and the error-feedback KMeans fit, each held to the documented ring
    bound ``p * sum_i absmax_i / 254`` of what rides the ring (the labels
-   to 99.9 % of the exact fit's); the kernels' launch counts are set to 0
-   before this phase and read after it, and each must be above 0;
+   to 99.9 % of the exact fit's), and the allreduce bitwise equal to the
+   ring composed of the unfused kernels; the kernels' launch counts are
+   set to 0 before this phase and read after it, and must be exactly 64
+   quantize, 102 hops, 30 dequantize_fma and 34 dequantize;
 5. the flash-attention kernels (B3 ``flash_attention``, B4
    ``flash_attention_partial``) against their plain versions on the card
    at the kernel's tiles (``kernel_blocks``) at the reference benchmark's
@@ -74,6 +84,11 @@ SUB = 20_000
 PAYLOAD = 1 << 20
 POSITIONS = 4
 BLOCK = 128
+#: rows at which every CTA of the quantize kernels' capped grid walks
+#: several slabs
+WALK_ROWS = 1 << 17
+#: the KMeans error-feedback ring's shapes: a chunk of 4 rows, a residual of 8
+SMALL_ROWS = (4, 8)
 #: H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor-core) rate and
 #: the bf16/fp16 and TF32 dense tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
@@ -159,12 +174,47 @@ def special_rows(rng) -> np.ndarray:
     return np.stack(rows)
 
 
+def near_tie_rows(rng, count: int) -> np.ndarray:
+    """Rows whose quotients x / scale sit on or within 2 ulps of a
+    half-integer: the cases where a division that is not correctly
+    rounded would round to the other integer.  Each row's absmax is
+    log-uniform in [2^-119, 2^100] (so some scales lie under 2^-96, the
+    kernels' IEEE-division path); in every other row the scale has at most
+    12 significant bits, so that many quotients are exact ties."""
+    inv127 = np.float32(1.0) / np.float32(127.0)
+    out = np.empty((count, BLOCK), np.float32)
+    for i in range(count):
+        amax = np.float32(2.0 ** rng.uniform(-119, 100))
+        if i % 2:
+            e = int(np.floor(np.log2(amax / 127))) - 11
+            s0 = np.float32(np.ldexp(float(rng.integers(2048, 4096)), e))
+            cand = np.float32(s0 / inv127)
+            if np.float32(cand * inv127) == s0:
+                amax = cand
+        scale = np.float32(amax * inv127)
+        h = rng.integers(-127, 127, size=BLOCK).astype(np.float32) + np.float32(0.5)
+        x = (h * scale).astype(np.float32)
+        steps = rng.integers(-2, 3, size=BLOCK)
+        for _ in range(2):
+            x = np.where(steps > 0, np.nextafter(x, np.float32(np.inf)), x)
+            x = np.where(steps < 0, np.nextafter(x, np.float32(-np.inf)), x)
+            steps = steps - np.sign(steps)
+        x[0] = amax if rng.integers(2) else -amax
+        out[i] = x
+    return out
+
+
 def payload(rows: int, seed: int) -> np.ndarray:
+    """``rows`` rows of 128 values: one of each special block first, then
+    random rows, every other one of them near ties (:func:`near_tie_rows`)."""
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(rows, BLOCK)) * 3.0).astype(np.float32)
     sp = special_rows(rng)
     k = min(rows, len(sp))
     x[:k] = sp[:k] if rows >= len(sp) else sp[rng.choice(len(sp), size=k, replace=False)]
+    ties = x[k + 1::2]  # a view: every other random row
+    if len(ties):
+        ties[:] = near_tie_rows(rng, min(len(ties), 512))[np.arange(len(ties)) % 512]
     return x.reshape(-1)
 
 
@@ -212,6 +262,26 @@ def device_ms(fn, argsets, per_graph: int = 32, trials: int = 9) -> float:
     return float(np.median(times))
 
 
+def after_ms(kernel, prep, argsets):
+    """Device time that ``kernel`` adds behind ``prep``, the PyTorch op
+    that comes before it on the main path: ``(prep then kernel) - prep``,
+    each timed with :func:`device_ms`.  ``prep`` maps an argset to the
+    kernel's arguments.  Back to back, a kernel launched with programmatic
+    dependent launch overlaps its own previous launch; behind a PyTorch
+    op, which never triggers its dependents early, it cannot.  Returns
+    ``(added, both, prep alone)`` in ms."""
+    both = device_ms(lambda *a: kernel(*prep(*a)), argsets)
+    alone = device_ms(prep, argsets)
+    return both - alone, both, alone
+
+
+def hop_prep(cq, q, s, a):
+    """What the ring runs before a hop kernel, at the same sizes: the
+    addend's gather (a roll stands in for it), then the payload's roll."""
+    add = cq._hop((a,), POSITIONS)[0]
+    return (*cq._hop((q, s), POSITIONS), add)
+
+
 def wall_ms(fn, reps: int = 5) -> float:
     """Median host time of ``fn`` fenced by a device synchronise."""
     import torch
@@ -233,7 +303,8 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
 
 def phase_kernels(torch, cq, dev):
     """Phase 2: every kernel bitwise against its plain version, then timed."""
-    for rows in (1, 3, 33, PAYLOAD // BLOCK):
+    big = PAYLOAD // BLOCK
+    for rows in (1, 3, 33, big, *SMALL_ROWS, big - 1, big + 1, WALK_ROWS):
         x = torch.from_numpy(payload(rows, seed=rows)).to(dev)
         add = torch.from_numpy(payload(rows, seed=rows + 1)).to(dev)
         q, s = cq.quantize_blocks(x)
@@ -244,13 +315,21 @@ def phase_kernels(torch, cq, dev):
             f = cq.dequantize_fma_blocks(q, s, add, negate=negate)
             fp = cq.dequantize_fma_blocks_plain(q, s, add, negate=negate)
             pairs.append((f"dequantize_fma negate={negate}", f, fp))
+        h, hs = cq.dequantize_add_quantize_blocks(q, s, add)
+        hp, hsp = cq.dequantize_add_quantize_blocks_plain(q, s, add)
+        pairs += [("dequantize_add_quantize q", h, hp), ("dequantize_add_quantize scale", hs, hsp)]
         torch.cuda.synchronize()
         for what, a, b in pairs:
             check(bitwise_equal(a, b), f"{what} kernel != plain at rows={rows}")
         print(f"kernels == plain, bitwise, at rows={rows}")
+    for fused in (False, True):
+        grids = {rows: cq._quantize_grid(rows, fused) for rows in (*SMALL_ROWS, big, WALK_ROWS)}
+        ctas, step = grids[WALK_ROWS]
+        check(grids[SMALL_ROWS[0]][0] == 1 and ctas * step < WALK_ROWS,
+              f"quantize grid (fused={fused}): {grids}")
+        print(f"{'hop' if fused else 'quantize'} grid (rows: CTAs, rows per step): {grids}")
 
-    rows = PAYLOAD // BLOCK
-    n = rows * BLOCK
+    n = big * BLOCK
     bufs = 16  # 16 x 4 MiB inputs: past the L2
     xs = [torch.randn(n, device=dev) for _ in range(bufs)]
     adds = [torch.randn(n, device=dev) for _ in range(bufs)]
@@ -258,22 +337,26 @@ def phase_kernels(torch, cq, dev):
     torch.cuda.synchronize()
     q0, s0 = enc[0]
     x0 = xs[0]
+
+    def q_err(got, want):
+        return max(max_abs_err(got[1], want[1]), max_abs_err(got[0].float(), want[0].float()))
+
     err = {
-        "blockquant_quantize": max(
-            max_abs_err(cq.quantize_blocks(x0)[1], cq.quantize_blocks_plain(x0.reshape(rows, BLOCK))[1]),
-            max_abs_err(cq.quantize_blocks(x0)[0].float(),
-                        cq.quantize_blocks_plain(x0.reshape(rows, BLOCK))[0].float()),
-        ),
+        "blockquant_quantize": q_err(cq.quantize_blocks(x0), cq.quantize_blocks_plain(x0.reshape(big, BLOCK))),
         "blockquant_dequantize": max_abs_err(cq.dequantize_blocks(q0, s0), cq.dequantize_blocks_plain(q0, s0)),
         "blockquant_dequantize_fma": max_abs_err(
             cq.dequantize_fma_blocks(q0, s0, adds[0]), cq.dequantize_fma_blocks_plain(q0, s0, adds[0])
         ),
+        "blockquant_dequantize_add_quantize": q_err(
+            cq.dequantize_add_quantize_blocks(q0, s0, adds[0]),
+            cq.dequantize_add_quantize_blocks_plain(q0, s0, adds[0]),
+        ),
     }
     qargs = [(x,) for x in xs]
-    qargs_plain = [(x.reshape(rows, BLOCK),) for x in xs]
+    qargs_plain = [(x.reshape(big, BLOCK),) for x in xs]
     dargs = [e for e in enc]
     fargs = [(e[0], e[1], a) for e, a in zip(enc, adds)]
-    scale_b = rows * 4
+    scale_b = big * 4
     rows_out = []
     for name, kernel, plain, library, args, plain_args, nbytes, ops, replaces in (
         ("blockquant_quantize", cq.quantize_blocks, cq.quantize_blocks_plain, None,
@@ -283,20 +366,76 @@ def phase_kernels(torch, cq, dev):
         ("blockquant_dequantize_fma", cq.dequantize_fma_blocks, cq.dequantize_fma_blocks_plain,
          lambda q, s, a: torch.addcmul(a.reshape(q.shape), q, s), fargs, fargs,
          n + scale_b + n * 4 + n * 4, n * 2, "heat_tpu/comm/compressed.py:249"),
+        ("blockquant_dequantize_add_quantize", cq.dequantize_add_quantize_blocks,
+         cq.dequantize_add_quantize_blocks_plain, None, fargs, fargs,
+         n + scale_b + n * 4 + n + scale_b, n * 8, "heat_tpu/comm/compressed.py:230"),
     ):
         ms = device_ms(kernel, args)
         plain_ms = device_ms(plain, plain_args)
         lib_ms = device_ms(library, args) if library is not None else None
         b_ms, b_by = bound_ms(nbytes, ops)
-        rows_out.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": None, "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        })
-        print(f"{name}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us by {b_by}), "
-              f"plain {plain_ms * 1e3:.2f} us, library "
-              f"{'none: no single PyTorch call computes it' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}")
+        }
+        extra = ""
+        pair = lambda q, s, a: cq.quantize_blocks(cq.dequantize_fma_blocks(q, s, a))  # noqa: E731
+        if name == "blockquant_dequantize_add_quantize":
+            row["unfused_pair_ms"] = device_ms(pair, fargs)
+            extra = f", the two launches it replaces {row['unfused_pair_ms'] * 1e3:.2f} us"
+        if name in ("blockquant_quantize", "blockquant_dequantize_add_quantize"):
+            # the launch floor at the KMeans error-feedback ring's shapes;
+            # and at every shape, as the main path launches the kernel:
+            # behind a ring hop's roll (for the hop, the addend's roll,
+            # standing in for the ring's gather of it, then the payload's)
+            hop = name == "blockquant_dequantize_add_quantize"
+            if hop:
+                prep = lambda q, s, a: hop_prep(cq, q, s, a)  # noqa: E731
+            else:
+                prep = lambda x: cq._hop((x,), POSITIONS)  # noqa: E731
+            row["small_ms"], row["after_roll_ms"], rolls = {}, {}, []
+            for rows in (big, *SMALL_ROWS):
+                sets = args
+                if rows != big:
+                    xs_s = [torch.randn(rows * BLOCK, device=dev) for _ in range(bufs)]
+                    sets = [(*cq.quantize_blocks(x), torch.randn(rows * BLOCK, device=dev)) if hop
+                            else (x,) for x in xs_s]
+                    row["small_ms"][str(rows)] = device_ms(kernel, sets)
+                added, _, alone = after_ms(kernel, prep, sets)
+                row["after_roll_ms"][str(rows)] = added
+                rolls.append(f"{rows} rows {added * 1e3:.2f} us (roll alone {alone * 1e3:.2f} us)")
+            if hop:
+                row["unfused_pair_after_roll_ms"] = after_ms(pair, prep, fargs)[0]
+                rolls.append(f"the two launches it replaces {row['unfused_pair_after_roll_ms'] * 1e3:.2f} us")
+            added = row["after_roll_ms"][str(big)]
+            share = (f"{b_ms / added * 100:.1f} % of the bound at {big} rows" if added > 0
+                     else "share of the bound not resolved")
+            extra += ("; at " + ", ".join(f"{r} rows {t * 1e3:.2f} us" for r, t in row["small_ms"].items())
+                      + "; behind a roll, as on the main path: " + ", ".join(rolls)
+                      + f" ({share})")
+        rows_out.append(row)
+        print(f"{name}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us by {b_by}, "
+              f"{b_ms / ms * 100:.1f} %), plain {plain_ms * 1e3:.2f} us, library "
+              f"{'none: no single PyTorch call computes it' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}"
+              + extra)
     return rows_out
+
+
+def ring_unfused(torch, cq, stacked, size: int):
+    """The int8 ring allreduce with every reduce-scatter hop as two
+    launches, ``dequantize_fma`` then ``quantize`` (the f32 partial sum
+    written and read back): the composition the hop kernel replaces."""
+    n = stacked.shape[1]
+    chunk = cq._padded_len(-(-n // size), BLOCK)
+    chunks = torch.nn.functional.pad(stacked, (0, size * chunk - n)).reshape(size, size, chunk)
+    pos = torch.arange(size, device=stacked.device)
+    cur = chunks[pos, pos]
+    for s in range(size - 1):
+        payload = cq._hop(cq.quantize_blocks(cur.reshape(-1)), size)
+        add = chunks[pos, (pos - s - 1) % size].reshape(-1)
+        cur = cq.dequantize_fma_blocks(*payload, add).reshape(size, chunk)
+    return cq.dequantize_blocks(*cq._hop(cq.quantize_blocks(cur.reshape(-1)), size))[:n]
 
 
 # --------------------------------------------------------------------- #
@@ -792,7 +931,8 @@ def run(dev, out_path=None) -> int:
     stacked = torch.from_numpy(stacked_np).to(dev)
     X4 = htt.array(data, split=0, comm=comm4)
     init4 = htt.array(centers, comm=comm4)
-    counted = (cq.quantize_blocks, cq.dequantize_blocks, cq.dequantize_fma_blocks)
+    counted = (cq.quantize_blocks, cq.dequantize_blocks, cq.dequantize_fma_blocks,
+               cq.dequantize_add_quantize_blocks)
     with cq.collective_precision("int8_block"):
         for fn in counted:
             fn.launches = 0
@@ -808,6 +948,8 @@ def run(dev, out_path=None) -> int:
         check(got.shape == (PAYLOAD,) and bool(np.isfinite(got).all()), "allreduce_q output")
         check(float(np.abs(got - exact).max()) <= bound, "allreduce_q outside p*sum(absmax)/254")
         check(bool((got != exact.astype(np.float32)).any()), "allreduce_q did not quantize")
+        unfused = ring_unfused(torch, cq, stacked, POSITIONS)
+        check(bitwise_equal(red, unfused), "allreduce_q != the ring of unfused kernels, bitwise")
         # the documented ring bound on the per-position partial sums, over N
         parts = d64.reshape(POSITIONS, N // POSITIONS, F).sum(1)
         m_bound = POSITIONS * float(np.abs(parts).max(axis=1).sum()) / 254.0 / N
@@ -840,9 +982,16 @@ def run(dev, out_path=None) -> int:
         )
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
+    # 34 rings (1 allreduce, 3 moments, 30 KMeans steps): 1 quantize, 3
+    # hops and 1 dequantize each; 30 error-feedback residuals: 1 quantize
+    # and 1 dequantize_fma each
+    expected = {"blockquant_quantize": 64, "blockquant_dequantize": 34,
+                "blockquant_dequantize_fma": 30, "blockquant_dequantize_add_quantize": 102}
+    check(launches == expected, f"launches {launches} != {expected}")
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
-    print(f"{POSITIONS} positions, int8_block: launches {launches}; allreduce error "
+    print(f"{POSITIONS} positions, int8_block: launches {launches} ({sum(launches.values())} in all); "
+          f"allreduce bitwise equal to the unfused ring; allreduce error "
           f"{float(np.abs(got - exact).max()):.4g} (bound {bound:.4g}); var error {v_err:.4g} "
           f"(bound {v_bound:.4g}); KMeans labels agree {agree:.6f}, max center shift "
           f"{shift:.4g} (bound {c_bound:.4g})")

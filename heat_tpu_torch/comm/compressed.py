@@ -15,17 +15,21 @@ The quantize/dequantize pair are hand-written CUDA kernels
 versions (:func:`quantize_blocks_plain`, :func:`dequantize_blocks_plain`)
 on a CPU tensor.  A third kernel, :func:`dequantize_fma_blocks`, fuses a
 decode with the addition after it into one fused multiply-add, because
-the reference's compiled ring contracts those two operations.  The plain
-versions flush subnormals, saturate and fuse explicitly, as the reference
-does (see the kernel source), so kernel and plain agree bit for bit on
-every input.
+the reference's compiled ring contracts those two operations.  A fourth,
+:func:`dequantize_add_quantize_blocks`, is one whole reduce-scatter hop:
+that fused decode-add, then the quantize of its sum for the next hop, in
+one launch, with the f32 sum never written.  The plain versions flush
+subnormals, saturate and fuse explicitly, as the reference does (see the
+kernel source), so kernel and plain agree bit for bit on every input.
 
 Rings run on the stacked position axis: a ``(p, ...)`` tensor holds one
 block per position, a hop is a roll of the encoded payload along that
 axis, and each hop encodes or decodes every position's chunk in ONE
 kernel launch (quantization is row-independent, so this equals p
-separate launches bit for bit).  The serial ring body of the reference is
-ported; its overlapped two-stream body is bitwise equal to it and is not.
+separate launches bit for bit).  An ``int8_block`` allreduce at p
+positions launches 1 quantize, p - 1 hops and 1 dequantize.  The serial
+ring body of the reference is ported; its overlapped two-stream body is
+bitwise equal to it and is not.
 
 Precision policy: a process-wide mode (``"f32"`` | ``"bf16"`` |
 ``"int8_block"`` | ``"auto"``) consulted by the communicator's allreduce
@@ -51,6 +55,8 @@ __all__ = [
     "allgather_q",
     "allreduce_q",
     "collective_precision",
+    "dequantize_add_quantize_blocks",
+    "dequantize_add_quantize_blocks_plain",
     "dequantize_blocks",
     "dequantize_blocks_plain",
     "dequantize_fma_blocks",
@@ -223,20 +229,48 @@ def dequantize_fma_blocks_plain(
     return _canon(_flush(tot.to(torch.float32))).reshape(-1)
 
 
+def dequantize_add_quantize_blocks_plain(
+    q: torch.Tensor, scales: torch.Tensor, addend: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the hop kernel: the fused decode-add of
+    :func:`dequantize_fma_blocks_plain`, then :func:`quantize_blocks_plain`
+    of its sum."""
+    return quantize_blocks_plain(dequantize_fma_blocks_plain(q, scales, addend).reshape(q.shape))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a block-quantization library."""
+    ptr = ctypes.c_void_p
+    for fn in (lib.blockquant_quantize, lib.blockquant_dequantize):
+        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int64, ptr]
+    lib.blockquant_dequantize_fma.argtypes = [ptr, ptr, ptr, ctypes.c_float, ptr, ctypes.c_int64, ptr]
+    lib.blockquant_dequantize_add_quantize.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int64, ptr]
+    lib.blockquant_grid.argtypes = [ctypes.c_int64, ctypes.c_int, ptr, ptr]
+    for fn in (lib.blockquant_quantize, lib.blockquant_dequantize, lib.blockquant_dequantize_fma,
+               lib.blockquant_dequantize_add_quantize, lib.blockquant_grid):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The block-quantization library, built on first use, with its C
     signatures declared."""
     from .. import kernels
 
-    lib = kernels.library("blockquant")
-    ptr = ctypes.c_void_p
-    for fn in (lib.blockquant_quantize, lib.blockquant_dequantize):
-        fn.argtypes = [ptr, ptr, ptr, ctypes.c_int64, ptr]
-        fn.restype = ctypes.c_int
-    lib.blockquant_dequantize_fma.argtypes = [ptr, ptr, ptr, ctypes.c_float, ptr, ctypes.c_int64, ptr]
-    lib.blockquant_dequantize_fma.restype = ctypes.c_int
-    return lib
+    return _declare(kernels.library("blockquant"))
+
+
+def _quantize_grid(rows: int, fused: bool = False) -> Tuple[int, int]:
+    """The launch shape of the quantize kernel (``fused``: of the hop
+    kernel) over ``rows`` rows on the current CUDA device: ``(CTAs, rows
+    a CTA takes per step of its loop)``.  The grid is capped at the CTAs
+    the card holds at once, so a CTA walks ``ceil(rows / step / CTAs)``
+    steps."""
+    ctas, step = ctypes.c_int64(0), ctypes.c_int(0)
+    _check(_lib().blockquant_grid(int(rows), int(fused), ctypes.addressof(ctas),
+                                  ctypes.addressof(step)), "blockquant_grid")
+    return ctas.value, step.value
 
 
 def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
@@ -348,10 +382,57 @@ def dequantize_fma_blocks(
     return out
 
 
+def dequantize_add_quantize_blocks(
+    q: torch.Tensor, scales: torch.Tensor, addend: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One reduce-scatter hop: decode the incoming payload ``(q, scales)``,
+    add ``addend`` (flat f32 of ``q.numel()`` values) with one rounding,
+    and quantize the sum: the next hop's ``(q', scales')``.  Bit for bit
+    ``quantize_blocks(dequantize_fma_blocks(q, scales, addend))``, without
+    writing the f32 sum.  A CUDA tensor runs the
+    ``blockquant_dequantize_add_quantize`` kernel, a CPU tensor the plain
+    version; any other device raises."""
+    if (q.ndim != 2 or q.dtype != torch.int8 or scales.dtype != torch.float32
+            or tuple(scales.shape) != (q.shape[0], 1)):
+        raise ValueError(
+            f"dequantize_add_quantize_blocks takes (rows, block) int8 and (rows, 1) float32, "
+            f"got {q.dtype} {tuple(q.shape)} and {scales.dtype} {tuple(scales.shape)}"
+        )
+    rows, block = q.shape
+    if addend.dtype != torch.float32 or addend.numel() != q.numel():
+        raise ValueError(f"addend must be float32 with {q.numel()} values")
+    if q.device.type == "cpu" and scales.device == q.device and addend.device == q.device:
+        return dequantize_add_quantize_blocks_plain(q, scales, addend)
+    if q.device.type != "cuda" or scales.device != q.device or addend.device != q.device:
+        raise ValueError(
+            f"dequantize_add_quantize_blocks runs on CUDA or CPU tensors, not "
+            f"{q.device}/{scales.device}/{addend.device}"
+        )
+    if block != BLOCK:
+        raise ValueError(f"the CUDA kernel takes block={BLOCK}, got {block}")
+    q_out = torch.empty((rows, block), dtype=torch.int8, device=q.device)
+    s_out = torch.empty((rows, 1), dtype=torch.float32, device=q.device)
+    if rows == 0:
+        return q_out, s_out
+    q = _aligned(q, 16)
+    addend = _aligned(addend.reshape(-1), 16)
+    scales = scales.contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().blockquant_dequantize_add_quantize(
+            q.data_ptr(), scales.data_ptr(), addend.data_ptr(), q_out.data_ptr(),
+            s_out.data_ptr(), rows, stream,
+        )
+    _check(rc, "blockquant_dequantize_add_quantize")
+    dequantize_add_quantize_blocks.launches += 1
+    return q_out, s_out
+
+
 #: launches of each kernel since the count was last set to 0
 quantize_blocks.launches = 0
 dequantize_blocks.launches = 0
 dequantize_fma_blocks.launches = 0
+dequantize_add_quantize_blocks.launches = 0
 
 
 def _encode(flat: torch.Tensor, mode: str, block: int) -> Tuple[torch.Tensor, ...]:
@@ -383,6 +464,15 @@ def _decode_add(payload: Tuple[torch.Tensor, ...], mode: str, addend: torch.Tens
     return dequantize_fma_blocks(*payload, addend.reshape(-1), negate=negate)
 
 
+def _decode_add_encode(payload: Tuple[torch.Tensor, ...], mode: str, addend: torch.Tensor,
+                       block: int) -> Tuple[torch.Tensor, ...]:
+    """``encode(addend + decode(payload))``: a reduce-scatter hop's
+    accumulate and re-encode; one kernel for int8 payloads."""
+    if mode == "bf16":
+        return _encode(_decode_add(payload, mode, addend), mode, block)
+    return dequantize_add_quantize_blocks(*payload, addend.reshape(-1))
+
+
 def _hop(payload: Tuple[torch.Tensor, ...], size: int) -> Tuple[torch.Tensor, ...]:
     """One ring hop of a stacked payload: position i's leaves move to
     position i + 1 (every leaf's leading rows split evenly by position)."""
@@ -409,6 +499,10 @@ def ring_allreduce_q(stacked: torch.Tensor, *, size: int, mode: str, block: int 
     then an all-gather in which each reduced chunk is quantized exactly
     once and the same bytes travel the ring.  Every position decodes the
     identical bytes, so the result is one replicated tensor of ``shape``.
+    The reduce-scatter's partial sums stay encoded: each hop decodes,
+    adds and re-encodes in one step (:func:`_decode_add_encode`), the
+    same operations in the same order as the reference's
+    ``encode(decode(payload) + chunk)``.
     """
     if size == 1:
         return stacked[0]
@@ -420,17 +514,16 @@ def ring_allreduce_q(stacked: torch.Tensor, *, size: int, mode: str, block: int 
     chunks = F.pad(flat, (0, total - n)).reshape(size, size, chunk)
     pos = torch.arange(size, device=stacked.device)
 
-    # stage 1 - reduce-scatter: position i ends holding chunk (i+1) mod size
-    cur = chunks[pos, pos]
+    # stage 1 - reduce-scatter: position i ends holding chunk (i+1) mod
+    # size, encoded: the payload of the all-gather
+    payload = _encode(chunks[pos, pos].reshape(-1), mode, block)
     for s in range(size - 1):
-        payload = _hop(_encode(cur.reshape(-1), mode, block), size)
         add = chunks[pos, (pos - s - 1) % size]
-        cur = _decode_add(payload, mode, add).reshape(size, chunk)
+        payload = _decode_add_encode(_hop(payload, size), mode, add, block)
 
     # stage 2 - all-gather: each reduced chunk quantized once, its bytes
     # forwarded verbatim; chunk j is decoded from position j-1's payload
-    payload = _hop(_encode(cur.reshape(-1), mode, block), size)
-    out = _decode(payload, mode)
+    out = _decode(_hop(payload, size), mode)
     return out[:n].reshape(shape).to(dtype)
 
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives for the hand-written kernels of this package:
-// mbarriers, TMA tensor loads and stores, wgmma with its shared-memory
-// descriptors and fences, and warpgroup register reallocation.  Each is a
-// thin inline-PTX wrapper; the PTX ISA's names are kept so a reader can
-// look each one up.  Included by csrc/*.cu (the library's hash covers it).
+// mbarriers, 1-D bulk copies, TMA tensor loads and stores, wgmma with its
+// shared-memory descriptors and fences, and warpgroup register
+// reallocation.  Each is a thin inline-PTX wrapper; the PTX ISA's names
+// are kept so a reader can look each one up.  Included by csrc/*.cu (the
+// library's hash covers it).
 
 #pragma once
 
@@ -51,6 +52,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---- bulk copy (1-D, no tensor map): `bytes` contiguous bytes from global
+// to shared memory, completion counted on `bar`.  dst, src and bytes are
+// multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ---- TMA (a 4-D box between global and shared memory)

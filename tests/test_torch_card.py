@@ -9,8 +9,12 @@ without the suite's ``conftest.py`` (which imports jax):
 Without a CUDA device every test here skips.  The inputs are the ones
 ``chip_smoke.py`` holds the kernels to: random rows with one of each
 special block (zero, NaN, +-Inf, the 1e36 saturation block, subnormal
-and flushed-scale blocks, half-way ties), at odd row counts and at the
-main path's 8192 rows.  Kernel and plain version must agree bit for bit.
+and flushed-scale blocks, half-way ties) and rows of quotients on or
+near half-integers, at odd row counts, at the
+KMeans error-feedback ring's 4 and 8 rows, at the main path's 8192 rows,
+at counts that are not a multiple of the quantize kernels' slab (8191,
+8193), and at 2^17 rows, where every CTA of the capped grid walks
+several slabs.  Kernel and plain version must agree bit for bit.
 
 The flash-attention kernels are held to their plain versions at the
 kernel's tiles (``kernel_blocks``: 128-row query tiles, 128-row K/V tiles
@@ -52,7 +56,7 @@ def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 3, 33, 8192])
+@pytest.mark.parametrize("rows", [1, 3, 33, 8192, 4, 8, 8191, 8193, 1 << 17])
 def test_kernels_match_plain_on_card(cuda_device, rows):
     x = torch.from_numpy(chip_smoke.payload(rows, seed=rows)).to(cuda_device)
     addend = torch.from_numpy(chip_smoke.payload(rows, seed=rows + 1)).to(cuda_device)
@@ -65,19 +69,55 @@ def test_kernels_match_plain_on_card(cuda_device, rows):
         f = tcq.dequantize_fma_blocks(q, s, addend, negate=negate)
         fp = tcq.dequantize_fma_blocks_plain(q, s, addend, negate=negate)
         assert _bitwise(f, fp)
+    h, hs = tcq.dequantize_add_quantize_blocks(q, s, addend)
+    hp, hsp = tcq.dequantize_add_quantize_blocks_plain(q, s, addend)
+    assert _bitwise(h, hp)
+    assert _bitwise(hs, hsp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_capped_grid_walks_several_slabs_on_card(cuda_device, fused):
+    # the grid never exceeds the CTAs the card holds at once: a 4-row
+    # call is one CTA, and at 2^17 rows every CTA takes several slabs
+    assert tcq._quantize_grid(4, fused)[0] == 1
+    ctas, step = tcq._quantize_grid(1 << 17, fused)
+    assert ctas * step < 1 << 17
+    assert ctas == tcq._quantize_grid(1 << 20, fused)[0]
+
+
+@pytest.mark.gpu
+def test_hop_wrapper_takes_block_128_on_card(cuda_device):
+    q = torch.zeros((2, 64), dtype=torch.int8, device=cuda_device)
+    s = torch.ones((2, 1), device=cuda_device)
+    with pytest.raises(ValueError, match="block=128"):
+        tcq.dequantize_add_quantize_blocks(q, s, torch.zeros(128, device=cuda_device))
 
 
 @pytest.mark.gpu
 def test_wrappers_count_kernel_launches(cuda_device):
     x = torch.randn(4 * BLOCK, device=cuda_device)
-    counted = (tcq.quantize_blocks, tcq.dequantize_blocks, tcq.dequantize_fma_blocks)
-    before = [fn.launches for fn in counted]
-    q, s = tcq.quantize_blocks(x)
-    tcq.dequantize_blocks(q, s)
-    tcq.dequantize_fma_blocks(q, s, x)
-    tcq.quantize_blocks_plain(x.reshape(-1, BLOCK))
-    torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1]
+    counted = (tcq.quantize_blocks, tcq.dequantize_blocks, tcq.dequantize_fma_blocks,
+               tcq.dequantize_add_quantize_blocks)
+
+    def count(fn):
+        before = [c.launches for c in counted]
+        fn()
+        torch.cuda.synchronize()
+        return [c.launches - b for c, b in zip(counted, before)]
+
+    def each_once():
+        q, s = tcq.quantize_blocks(x)
+        tcq.dequantize_blocks(q, s)
+        tcq.dequantize_fma_blocks(q, s, x)
+        tcq.dequantize_add_quantize_blocks(q, s, x)
+        tcq.quantize_blocks_plain(x.reshape(-1, BLOCK))
+        tcq.dequantize_add_quantize_blocks_plain(q, s, x)
+
+    assert count(each_once) == [1, 1, 1, 1]
+    # a ring at 4 positions: 1 quantize, 3 hops, 1 dequantize
+    stacked = torch.randn(4, 1000, device=cuda_device)
+    assert count(lambda: tcq.ring_allreduce_q(stacked, size=4, mode="int8_block")) == [1, 1, 0, 3]
 
 
 def _plain(q, k, v, causal, q_base=0):

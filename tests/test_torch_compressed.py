@@ -9,7 +9,9 @@ Same numpy inputs through ``heat_tpu.comm.compressed`` and
   blocks: all-zero, NaN, +-Inf, the 1e36 saturation block, all-subnormal,
   and absmax in ``[FLT_MIN, 127*FLT_MIN)`` whose scale flushes to zero.
   The reference runs with subnormals flushed; the port reproduces that
-  explicitly, and these cases pin it.
+  explicitly, and these cases pin it.  The same blocks, in the incoming
+  payload and in the addend, pin the ring hop's one-launch form
+  ``dequantize_add_quantize_blocks`` to the composition it replaces.
 * ``ring_allreduce_q``, ``allreduce_q`` (with and without error feedback)
   and the all-gather must be BITWISE equal at 2, 4 and 8 positions: the
   same IEEE operations run in the same order.  Two facts about the
@@ -130,15 +132,33 @@ def test_quantize_random_rows_bitwise(rows):
     np.testing.assert_array_equal(_bits(dt), _bits(dj))
 
 
+@pytest.mark.parametrize("form", ["quantize", "hop"])
 @pytest.mark.parametrize("rows", [3, 32])
 @pytest.mark.parametrize("kind", SPECIAL)
-def test_quantize_special_blocks_bitwise(kind, rows):
+def test_quantize_special_blocks_bitwise(kind, rows, form):
     """Zero, non-finite, saturating, subnormal and flushed-scale blocks:
-    q, scale and the decoded values bitwise equal to the reference."""
-    (qj, sj, dj), (qt, st, dt) = _both_quantize(_payload(rows, kind, seed=11))
-    np.testing.assert_array_equal(qt, qj)
-    np.testing.assert_array_equal(_bits(st), _bits(sj))
-    np.testing.assert_array_equal(_bits(dt), _bits(dj))
+    q, scale and the decoded values bitwise equal to the reference.
+    ``hop``: with the block kind in both the incoming payload and the
+    addend, the one-launch hop equals ``quantize(dequantize_fma(...))``
+    of the plain versions bit for bit, and its quantize equals the
+    reference's on the same decoded sum."""
+    if form == "quantize":
+        (qj, sj, dj), (qt, st, dt) = _both_quantize(_payload(rows, kind, seed=11))
+        np.testing.assert_array_equal(qt, qj)
+        np.testing.assert_array_equal(_bits(st), _bits(sj))
+        np.testing.assert_array_equal(_bits(dt), _bits(dj))
+        return
+    q, s = tcq.quantize_blocks(torch.from_numpy(_payload(rows, kind, seed=12)))
+    addend = torch.from_numpy(_payload(rows, kind, seed=11))
+    qt, st = tcq.dequantize_add_quantize_blocks(q, s, addend)
+    total = tcq.dequantize_fma_blocks_plain(q, s, addend)
+    qp, sp = tcq.quantize_blocks_plain(total.reshape(rows, BLOCK))
+    assert qt.dtype == torch.int8 and qt.shape == (rows, BLOCK) and st.shape == (rows, 1)
+    np.testing.assert_array_equal(qt.numpy(), qp.numpy())
+    np.testing.assert_array_equal(_bits(st.numpy()), _bits(sp.numpy()))
+    qj, sj = _jax_quantize(jnp.asarray(total.numpy()))
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(_bits(st.numpy()), _bits(sj))
 
 
 def test_reference_eager_path_differs_by_one_ulp():
@@ -216,6 +236,31 @@ def test_wrapper_raises_on_unsupported_device_and_shape():
         tcq.dequantize_fma_blocks(q, s, torch.zeros(BLOCK - 1))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tcq.dequantize_fma_blocks(q.to("meta"), s.to("meta"), torch.zeros(BLOCK, device="meta"))
+
+
+_Q, _S, _A = torch.zeros((2, BLOCK), dtype=torch.int8), torch.ones((2, 1)), torch.zeros(2 * BLOCK)
+
+
+@pytest.mark.parametrize("args, match", [
+    ((_Q.float(), _S, _A), "int8"),
+    ((_Q, _S.double(), _A), "int8"),
+    ((_Q.reshape(-1), _S, _A), "int8"),
+    ((_Q, torch.ones((2,)), _A), "int8"),
+    ((_Q, torch.ones((3, 1)), _A), "int8"),
+    ((_Q, _S, _A.double()), "addend"),
+    ((_Q, _S, _A[:-1]), "addend"),
+    ((_Q, _S, torch.zeros(2 * 64)), "addend"),
+    ((_Q.to("meta"), _S.to("meta"), _A.to("meta")), "CUDA or CPU"),
+    ((_Q, _S, _A.to("meta")), "CUDA or CPU"),
+    ((_Q, _S.to("meta"), _A), "CUDA or CPU"),
+], ids=["q_float", "scales_double", "q_flat", "scales_1d", "scales_rows", "addend_double",
+        "addend_short", "addend_block_64", "meta", "addend_meta", "scales_meta"])
+def test_hop_wrapper_rejects(args, match):
+    """The one-launch hop checks dtypes, shapes and devices like its
+    neighbours (a block other than 128 is refused on the card:
+    ``tests/test_torch_card.py``)."""
+    with pytest.raises(ValueError, match=match):
+        tcq.dequantize_add_quantize_blocks(*args)
 
 
 # --------------------------------------------------------------------- #
