@@ -54,7 +54,24 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    x 4096 x 1024 and weights 1024 x 64 carried in through ``interop``),
    each held against single-card ``flash_attention`` or float64 dense
    attention; both kernels' launch counts are set to 0 before this phase
-   and read after it, and each must be above 0.
+   and read after it, and each must be above 0;
+7. linear algebra and Lasso at the reference benchmark's sizes, through
+   the entry points: QR and SVD of a tall-skinny 131 072 x 64 float32
+   matrix (``bench.py`` qr_svd_ms), split on rows, at 1 position and at 4
+   (TSQR), each held to ``||QR - A|| / ||A|| <= 1e-5``, ``max|Q^T Q - I|
+   <= 1e-4``, an upper-triangular R, S within rtol 1e-4 of float64
+   singular values computed on the card and ``||U diag(S) V^T - A|| /
+   ||A|| <= 1e-5``; Lasso coordinate descent at 1 position on the blobs
+   (y as ``bench.py`` lasso_rate builds it; lam 0.1, 50 sweeps) held to a
+   float64 numpy replay of the same sweeps within 1e-4 of its largest
+   coefficient; Lasso ISTA (gd) at 4 positions, exact and under
+   ``int8_block`` (1000 steps each), the exact fit within 1e-4 of its
+   largest coefficient of a float64 numpy replay of the same steps (on
+   the Gram matrix, its step from an eigensolver), the compressed fit's
+   loss within 1e-3 of the exact one's (the reference's own gate); the
+   kernels' launch counts are set to 0 before the compressed fit and read
+   after it, and must be exactly 2 quantize, 3 hops, 1 dequantize_fma and
+   1 dequantize a step.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -106,6 +123,16 @@ ATTN_S, ATTN_H, ATTN_D = 4096, 16, 64
 RING_S, RING_H = 2048, 8
 SELF_E = 1024
 F32_TOL, HALF_TOL, CHAIN_TOL = 2e-5, 5e-2, 2e-6
+#: the reference benchmark's tall-skinny QR/SVD (bench.py qr_svd_ms)
+QR_M, QR_N = 131_072, 64
+QR_TOL, ORTH_TOL, S_RTOL = 1e-5, 1e-4, 1e-4
+#: Lasso on the blobs (bench.py lasso_rate): penalty, cd sweeps, gd steps
+LASSO_LAM, LASSO_SWEEPS, LASSO_STEPS = 0.1, 50, 1000
+#: cd and exact gd against their float64 replays, as a share of the largest
+#: coefficient (gd's 1000 steps stop short of the minimiser, so theta still
+#: carries the step size); the compressed gd loss against the exact one
+#: (the reference's gate)
+CD_TOL, GD_TOL, LOSS_RTOL = 1e-4, 1e-4, 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -841,6 +868,164 @@ def phase_attention_path(torch, htt, fa, dev):
     return launches, metrics
 
 
+# --------------------------------------------------------------------- #
+# linear algebra and Lasso (phase 7)                                    #
+# --------------------------------------------------------------------- #
+def lasso_target(data: np.ndarray) -> np.ndarray:
+    """y as the reference benchmark builds it (bench.py lasso_rate)."""
+    return (data @ np.arange(1, F + 1, dtype=np.float32) / F
+            + np.random.default_rng(1).normal(size=data.shape[0]).astype(np.float32))
+
+
+def columns64(data: np.ndarray) -> np.ndarray:
+    """Lasso's design matrix in float64, as ``(f + 1, n)`` columns: the
+    intercept's row of ones, then the features."""
+    cols = np.empty((data.shape[1] + 1, data.shape[0]))
+    cols[0], cols[1:] = 1.0, data.T
+    return cols
+
+
+def numpy_cd(data: np.ndarray, y: np.ndarray, lam: float, sweeps: int) -> np.ndarray:
+    """The reference's coordinate descent (heat_tpu/regression/lasso.py
+    ``_fit_segment``) replayed in float64 with numpy: the intercept column
+    first, ``rho_j = mean(x_j (r + x_j theta_j))``, the soft threshold,
+    the residual kept incrementally."""
+    n, f = data.shape
+    cols = columns64(data)
+    z = np.maximum(np.einsum("ij,ij->i", cols, cols) / n, 1e-12)
+    theta = np.zeros(f + 1)
+    for _ in range(sweeps):
+        resid = y.astype(np.float64) - cols.T @ theta
+        for j in range(f + 1):
+            rho = cols[j] @ resid / n + theta[j] * z[j]
+            new = (rho if j == 0 else np.sign(rho) * max(abs(rho) - lam, 0.0)) / z[j]
+            resid -= cols[j] * (new - theta[j])
+            theta[j] = new
+    return theta
+
+
+def numpy_ista(data: np.ndarray, y: np.ndarray, lam: float, steps: int) -> np.ndarray:
+    """The reference's exact ISTA (heat_tpu/regression/lasso.py
+    ``_gd_segment``) replayed in float64 with numpy on the Gram matrix:
+    ``grad = G theta - b`` with ``G = A^T A / n`` and ``b = A^T y / n`` over
+    the columns [1, data], the step ``1 / lambda_max(G)`` from an
+    eigensolver (not a power iteration), the soft threshold ``step * lam``
+    on all but the intercept."""
+    n, f = data.shape
+    cols = columns64(data)
+    g, b = cols @ cols.T / n, cols @ y.astype(np.float64) / n
+    step = 1.0 / np.linalg.eigvalsh(g)[-1]
+    theta = np.zeros(f + 1)
+    for _ in range(steps):
+        theta = theta - step * (g @ theta - b)
+        theta[1:] = np.sign(theta[1:]) * np.maximum(np.abs(theta[1:]) - step * lam, 0.0)
+    return theta
+
+
+def lasso_loss(data: np.ndarray, y: np.ndarray, theta: np.ndarray, lam: float) -> float:
+    """The Lasso objective ``mean(r^2) / 2 + lam |theta_1:|_1``, in float64."""
+    r = data.astype(np.float64) @ theta[1:] + theta[0] - y
+    return 0.5 * float(np.mean(r * r)) + lam * float(np.abs(theta[1:]).sum())
+
+
+def phase_linalg_lasso(torch, htt, cq, dev, data, counted):
+    """Phase 7: QR/SVD and Lasso through the entry points; returns the
+    kernels' launch counts of the compressed gd fit and the metrics."""
+    metrics = {}
+    m, n, sweeps, steps = QR_M, QR_N, LASSO_SWEEPS, LASSO_STEPS
+    a_np = np.random.default_rng(2).normal(size=(m, n)).astype(np.float32)
+    A = torch.from_numpy(a_np).to(dev)
+    A64 = A.double()
+    s64 = torch.linalg.svdvals(A64)
+    norm_a = float(torch.linalg.norm(A64))
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    for p in (1, POSITIONS):
+        comm = htt.TorchCommunication([dev] * p)
+        X = htt.array(A, split=0, comm=comm)
+        q, r = htt.linalg.qr(X)
+        Q, R = q.larray.double(), r.larray.double()
+        res = float(torch.linalg.norm(Q @ R - A64)) / norm_a
+        orth = float((Q.T @ Q - eye).abs().max())
+        check(q.shape == (m, n) and r.shape == (n, n) and q.split == 0, f"qr shapes at {p}")
+        check(res <= QR_TOL, f"qr at {p} position(s): ||QR - A|| / ||A|| = {res:.3g} > {QR_TOL}")
+        check(orth <= ORTH_TOL, f"qr at {p} position(s): max|Q^T Q - I| = {orth:.3g} > {ORTH_TOL}")
+        check(bool((torch.tril(r.larray, -1) == 0).all()), f"qr at {p} position(s): R not upper-triangular")
+        u, s, v = htt.linalg.svd(X)
+        check(u.shape == (m, n) and u.split == 0 and s.shape == (n,) and v.shape == (n, n),
+              f"svd shapes at {p}")
+        s_err = float(((s.larray.double() - s64).abs() / s64).max())
+        rec = float(torch.linalg.norm((u.larray.double() * s.larray.double()) @ v.larray.double().T - A64)) / norm_a
+        check(s_err <= S_RTOL, f"svd at {p} position(s): S {s_err:.3g} from float64 > rtol {S_RTOL}")
+        check(rec <= QR_TOL, f"svd at {p} position(s): ||U S V^T - A|| / ||A|| = {rec:.3g} > {QR_TOL}")
+        ms = wall_ms(lambda: htt.linalg.svd(X))
+        metrics["qr_svd_ms" if p == 1 else f"qr_svd_{p}pos_ms"] = ms
+        print(f"qr/svd {m} x {n}, {p} position(s): ||QR - A||/||A|| {res:.3g}, max|Q^T Q - I| {orth:.3g}, "
+              f"S rtol {s_err:.3g}, ||USV^T - A||/||A|| {rec:.3g}; svd {ms:.3f} ms")
+
+    Lasso = htt.regression.Lasso
+    y = lasso_target(data).astype(np.float32)
+    comm1 = htt.TorchCommunication([dev])
+    X1, Y1 = htt.array(data, split=0, comm=comm1), htt.array(y, split=0, comm=comm1)
+    cd = Lasso(lam=LASSO_LAM, max_iter=sweeps, tol=-1.0).fit(X1, Y1)
+    theta = cd.theta.numpy().reshape(-1)
+    t0 = time.perf_counter()
+    theta64 = numpy_cd(data, y, LASSO_LAM, sweeps)
+    replay_s = time.perf_counter() - t0
+    cd_err = float(np.abs(theta - theta64).max())
+    check(cd.n_iter == sweeps, f"lasso cd ran {cd.n_iter} sweeps, not {sweeps}")
+    check(cd_err <= CD_TOL * float(np.abs(theta64).max()),
+          f"lasso cd: {cd_err:.3g} from the float64 replay > {CD_TOL} x {np.abs(theta64).max():.3g}")
+    cd_ms = wall_ms(lambda: Lasso(lam=LASSO_LAM, max_iter=sweeps, tol=-1.0).fit(X1, Y1), reps=3)
+    metrics["lasso_sweeps_per_s"] = sweeps / cd_ms * 1e3
+    print(f"lasso cd, 1 position, {sweeps} sweeps: {cd_err:.3g} from the float64 replay "
+          f"(max|theta| {np.abs(theta64).max():.4g}; replay {replay_s:.1f} s on the host); "
+          f"{metrics['lasso_sweeps_per_s']:.1f} sweeps/s")
+
+    comm4 = htt.TorchCommunication([dev] * POSITIONS)
+    X4, Y4 = htt.array(data, split=0, comm=comm4), htt.array(y, split=0, comm=comm4)
+
+    def gd():
+        return Lasso(lam=LASSO_LAM, max_iter=steps, tol=-1.0, solver="gd").fit(X4, Y4)
+
+    exact = gd()
+    theta_gd = exact.theta.numpy().reshape(-1).astype(np.float64)
+    t0 = time.perf_counter()
+    ista64 = numpy_ista(data, y, LASSO_LAM, steps)
+    replay_s = time.perf_counter() - t0
+    gd_err = float(np.abs(theta_gd - ista64).max())
+    check(gd_err <= GD_TOL * float(np.abs(ista64).max()),
+          f"lasso gd: {gd_err:.3g} from the float64 replay > {GD_TOL} x {np.abs(ista64).max():.3g}")
+    with cq.collective_precision("int8_block"):
+        for fn in counted:
+            fn.launches = 0
+        comp = gd()
+        torch.cuda.synchronize()
+        launches = {f"blockquant_{fn.__name__.removesuffix('_blocks')}": fn.launches for fn in counted}
+        gd_q_ms = wall_ms(gd, reps=3)
+    gd_ms = wall_ms(gd, reps=3)
+    le = lasso_loss(data, y, theta_gd, LASSO_LAM)
+    lq = lasso_loss(data, y, comp.theta.numpy().reshape(-1).astype(np.float64), LASSO_LAM)
+    l0 = lasso_loss(data, y, np.zeros(F + 1), LASSO_LAM)
+    check(exact.n_iter == comp.n_iter == steps, f"lasso gd ran {exact.n_iter} / {comp.n_iter} steps")
+    check(np.isfinite(le) and le < l0, f"lasso gd: exact loss {le} not under the start's {l0}")
+    check(abs(lq - le) <= LOSS_RTOL * le, f"lasso gd int8: loss {lq} not within {LOSS_RTOL} of exact {le}")
+    # each ISTA step: the EF encode and the ring's first encode, the EF
+    # residual, POSITIONS - 1 reduce-scatter hops and the gather's decode
+    expected = {"blockquant_quantize": 2 * steps, "blockquant_dequantize": steps,
+                "blockquant_dequantize_fma": steps,
+                "blockquant_dequantize_add_quantize": (POSITIONS - 1) * steps}
+    check(launches == expected, f"lasso gd int8 launches {launches} != {expected}")
+    metrics["lasso_gd_iter_per_s"] = steps / gd_ms * 1e3
+    metrics["lasso_gd_int8_4pos_iter_per_s"] = steps / gd_q_ms * 1e3
+    print(f"lasso gd, {POSITIONS} positions, {steps} steps: exact {gd_err:.3g} from the float64 replay "
+          f"(max|theta| {np.abs(ista64).max():.4g}, its loss {lasso_loss(data, y, ista64, LASSO_LAM):.7g}; "
+          f"replay {replay_s:.1f} s on the host), loss exact "
+          f"{le:.7g}, int8_block {lq:.7g} (rel {abs(lq - le) / le:.3g}, start {l0:.4g}); launches {launches}; exact "
+          f"{metrics['lasso_gd_iter_per_s']:.1f} iter/s, int8_block "
+          f"{metrics['lasso_gd_int8_4pos_iter_per_s']:.1f} iter/s")
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -1003,6 +1188,12 @@ def run(dev, out_path=None) -> int:
     attn_launches, path_metrics = phase_attention_path(torch, htt, fa, dev)
     for row in attn_rows:
         row["launches"] = attn_launches[row["name"]]
+
+    # ---------------------------------------------------------------- 7
+    lasso_launches, linalg_metrics = phase_linalg_lasso(torch, htt, cq, dev, data, counted)
+    for row in kernel_rows:
+        row["launches_by_phase"] = {"4": row["launches"], "7": lasso_launches[row["name"]]}
+        row["launches"] += lasso_launches[row["name"]]
     kernel_rows += attn_rows
 
     metrics = {
@@ -1014,6 +1205,7 @@ def run(dev, out_path=None) -> int:
         "allreduce_q_ms": allreduce_ms,
         **attn_metrics,
         **path_metrics,
+        **linalg_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

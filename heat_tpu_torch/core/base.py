@@ -1,4 +1,5 @@
-"""sklearn-style estimator API: ``BaseEstimator`` and ``ClusteringMixin``.
+"""sklearn-style estimator API: ``BaseEstimator``, ``ClusteringMixin``,
+``RegressionMixin`` and ``is_regressor``.
 
 Port of ``heat_tpu/core/base.py`` without its telemetry span wrapping.
 """
@@ -8,7 +9,7 @@ from __future__ import annotations
 import inspect
 from typing import Any, Dict
 
-__all__ = ["BaseEstimator", "ClusteringMixin"]
+__all__ = ["BaseEstimator", "ClusteringMixin", "RegressionMixin", "is_regressor"]
 
 
 class BaseEstimator:
@@ -76,3 +77,25 @@ class ClusteringMixin:
 
     def predict(self, x):
         raise NotImplementedError()
+
+
+class RegressionMixin:
+    """Mixin for regression estimators."""
+
+    _estimator_type = "regressor"
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        """Fit, then return the predictions for ``x``."""
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
+
+
+def is_regressor(obj) -> bool:
+    """True for a regression estimator."""
+    return getattr(obj, "_estimator_type", None) == "regressor"

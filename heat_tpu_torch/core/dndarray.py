@@ -188,6 +188,74 @@ class DNDarray:
         buf = self.__array.to(dtype.torch_type(), copy=True)
         return DNDarray(buf, self.__gshape, dtype, self.__split, self.__device, self.__comm)
 
+    def __getitem__(self, key) -> "DNDarray":
+        """Basic indexing with global semantics: integers, slices (any
+        step), ``Ellipsis`` and ``None``.  A slice keeps the split on its
+        axis; an integer that consumes the split axis hands it to the
+        nearest remaining axis; a 0-d result is replicated.  Array keys
+        need the ring gather of ``parallel/take.py`` (not ported yet)."""
+        keyt = key if isinstance(key, tuple) else (key,)
+        for k in keyt:
+            if not (k is None or k is Ellipsis or isinstance(k, slice) or (
+                isinstance(k, (int, np.integer)) and not isinstance(k, (bool, np.bool_))
+            )):
+                raise NotImplementedError(
+                    f"DNDarray indexing with {type(k).__name__} keys needs the ring gather "
+                    "of parallel/take.py (ROADMAP queue A, item 6); integers, slices, "
+                    "Ellipsis and None are supported"
+                )
+        used = sum(1 for k in keyt if k is not None and k is not Ellipsis)
+        if used > self.ndim:
+            raise IndexError(
+                f"too many indices for array: array is {self.ndim}-dimensional, but {used} were indexed"
+            )
+        if sum(1 for k in keyt if k is Ellipsis) > 1:
+            raise IndexError("an index can only have a single ellipsis ('...')")
+        fill = [slice(None)] * (self.ndim - used)
+        expanded = []
+        for k in keyt:
+            expanded += fill if k is Ellipsis else [k]
+        if not any(k is Ellipsis for k in keyt):
+            expanded += fill
+
+        arr, out_axis, in_axis, split = self.larray, 0, 0, None
+        for k in expanded:
+            if k is None:
+                arr = arr.unsqueeze(out_axis)
+                out_axis += 1
+                continue
+            if in_axis == self.__split:
+                split = out_axis
+            if isinstance(k, slice):
+                start, stop, step = k.indices(int(arr.shape[out_axis]))
+                if step > 0:
+                    arr = arr[(slice(None),) * out_axis + (slice(start, stop, step),)]
+                else:
+                    arr = arr.index_select(out_axis, torch.arange(start, stop, step, device=arr.device))
+                out_axis += 1
+            else:
+                arr = arr.select(out_axis, int(k))
+            in_axis += 1
+        if split is not None:
+            split = None if arr.ndim == 0 else min(split, arr.ndim - 1)
+        return DNDarray(arr, tuple(arr.shape), self.__dtype, split, self.__device, self.__comm)
+
+    @property
+    def T(self) -> "DNDarray":
+        """The array with its axes reversed."""
+        return self.transpose()
+
+    def transpose(self, axes=None) -> "DNDarray":
+        """The array with its axes permuted (default: reversed)."""
+        from .linalg import basics
+
+        return basics.transpose(self, axes)
+
+    def __matmul__(self, other):
+        from .linalg import basics
+
+        return basics.matmul(self, other)
+
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
         """A copy laid out at ``axis`` (``None``: replicated)."""
         arr = self.__comm.resplit(self.larray, axis)

@@ -1,0 +1,241 @@
+"""Linear algebra basics: ``matmul``, ``dot``, the norms, ``outer``,
+``projection``, ``transpose``, ``tril`` and ``triu``.
+
+Port of the 1-D half of ``heat_tpu/core/linalg/basics.py``.  Every
+position lives on one device, so a product in any split combination is one
+``torch.matmul`` over the true-shape operands (no pad value reaches the
+k-sum), laid out at the reference's result split.  The reference's 1-D
+ring SUMMA (a stationary operand, the other's shards rotating p rounds)
+bounds memory per device and returns with positions on several cards; the
+grid SUMMA of a 2-D position grid is not ported.
+
+Matrix products run at the precision :func:`set_matmul_precision` names,
+mapped onto ``torch.set_float32_matmul_precision`` for the duration of each
+call and restored after it: ``'highest'`` (the default) keeps TF32 off,
+``'float32'`` is torch's ``'high'`` (TF32), ``'default'`` torch's
+``'medium'``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional
+
+import torch
+
+from .. import types
+from .._operations import _out
+from ..dndarray import DNDarray
+from ..sanitation import sanitize_axis, sanitize_in
+
+__all__ = [
+    "dot",
+    "get_matmul_precision",
+    "matmul",
+    "matrix_norm",
+    "norm",
+    "outer",
+    "projection",
+    "set_matmul_precision",
+    "transpose",
+    "tril",
+    "triu",
+    "vector_norm",
+]
+
+#: heat precision name -> torch float32 matmul precision
+_TORCH_PRECISION = {"highest": "highest", "float32": "high", "default": "medium"}
+_MATMUL_PRECISION = "highest"
+
+
+def set_matmul_precision(precision: str) -> None:
+    """Set the precision of every linalg matrix product: ``'default'``,
+    ``'float32'`` or ``'highest'``."""
+    global _MATMUL_PRECISION
+    if precision not in _TORCH_PRECISION:
+        raise ValueError(f"invalid precision {precision!r}")
+    _MATMUL_PRECISION = precision
+
+
+def get_matmul_precision() -> str:
+    """The precision of linalg matrix products."""
+    return _MATMUL_PRECISION
+
+
+@contextlib.contextmanager
+def _matmul_precision(precision: Optional[str] = None):
+    """Run the body at ``precision`` (None: the module's), setting torch's
+    process-wide float32 matmul precision and restoring it on exit, also
+    when the body raises."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(_TORCH_PRECISION[precision or _MATMUL_PRECISION])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul``; integer and bool operands, which cuBLAS has no
+    product for, multiply exactly by a broadcast product summed over k."""
+    if x.is_floating_point():
+        return torch.matmul(x, y)
+    x2 = x.unsqueeze(0) if x.ndim == 1 else x
+    y2 = y.unsqueeze(-1) if y.ndim == 1 else y
+    out = (x2.unsqueeze(-1) * y2.unsqueeze(-3)).sum(-2).to(x.dtype)
+    if y.ndim == 1:
+        out = out.squeeze(-1)
+    if x.ndim == 1:
+        out = out.squeeze(-2 if y.ndim > 1 else -1)
+    return out
+
+
+def _result_split_matmul(a: DNDarray, b: DNDarray, out_ndim: int) -> Optional[int]:
+    """Split of a product: split 0 of a matrix ``a`` gives a row-split
+    result, a ``b`` split on its last axis a column-split one; a product
+    that contracts the split axis (or of vectors) is replicated."""
+    if out_ndim == 0:
+        return None
+    if a.split == 0 and a.ndim > 1:
+        return 0
+    if b.split is not None and b.ndim > 1 and b.split == b.ndim - 1:
+        return out_ndim - 1
+    return None
+
+
+def matmul(
+    a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, precision: Optional[str] = None
+) -> DNDarray:
+    """Matrix product of two DNDarrays, numpy's ``matmul`` semantics
+    (vectors, batched operands), in every split combination.  ``out``
+    receives the result; ``precision`` overrides :func:`get_matmul_precision`
+    for this call."""
+    sanitize_in(a)
+    sanitize_in(b)
+    if precision is not None and precision not in _TORCH_PRECISION:
+        raise ValueError(f"invalid precision {precision!r}")
+    if a.ndim == 0 or b.ndim == 0:
+        raise ValueError("matmul does not accept 0-d operands (use mul)")
+    k_a = a.shape[-1]
+    k_b = b.shape[-2] if b.ndim >= 2 else b.shape[0]
+    if k_a != k_b:
+        raise ValueError(f"matmul shape mismatch: {a.shape} @ {b.shape} (contracting {k_a} vs {k_b})")
+    if a.ndim > 2 or b.ndim > 2:
+        batch_a = a.shape[:-2] if a.ndim > 2 else ()
+        batch_b = b.shape[:-2] if b.ndim > 2 else ()
+        for da, db in zip(reversed(batch_a), reversed(batch_b)):
+            if da != db and da != 1 and db != 1:
+                raise ValueError(
+                    f"matmul batch dimensions do not broadcast: {a.shape} @ {b.shape} ({da} vs {db})"
+                )
+    promoted = types.promote_types(a.dtype, b.dtype)
+    dtype = promoted.torch_type()
+    with _matmul_precision(precision):
+        garr = _mm(a.larray.to(dtype), b.larray.to(dtype))
+    split = _result_split_matmul(a, b, garr.ndim)
+    return _out(out, DNDarray(garr, tuple(garr.shape), promoted, split, a.device, a.comm))
+
+
+def dot(a, b, out: Optional[DNDarray] = None):
+    """Dot product: two vectors give a 0-d result, 0-d operands multiply,
+    everything else is :func:`matmul`."""
+    from .. import arithmetics
+
+    if not (isinstance(a, DNDarray) and isinstance(b, DNDarray)) or a.ndim == 0 or b.ndim == 0:
+        return arithmetics.mul(a, b)
+    if a.ndim == 1 and b.ndim == 1:
+        promoted = types.promote_types(a.dtype, b.dtype)
+        dtype = promoted.torch_type()
+        with _matmul_precision():
+            res = _mm(a.larray.to(dtype), b.larray.to(dtype))
+        return _out(out, DNDarray(res, (), promoted, None, a.device, a.comm))
+    return matmul(a, b, out=out)
+
+
+def _inexact(a: DNDarray) -> torch.Tensor:
+    """``a``'s values, exact types cast to float32."""
+    return a.larray.to(torch.float32) if types.heat_type_is_exact(a.dtype) else a.larray
+
+
+def _scalar(a: DNDarray, res: torch.Tensor) -> DNDarray:
+    return DNDarray(res, (), types.canonical_heat_type(res.dtype), None, a.device, a.comm)
+
+
+def norm(a: DNDarray) -> DNDarray:
+    """The 2-norm of the whole array, ``sqrt(sum(a * a))``, as a 0-d
+    DNDarray (``float()`` of it is the caller's host sync)."""
+    sanitize_in(a)
+    x = _inexact(a)
+    return _scalar(a, torch.sqrt(torch.sum(x * x)))
+
+
+def vector_norm(a: DNDarray, ord=2) -> DNDarray:
+    """The ``ord``-norm of the flattened array."""
+    sanitize_in(a)
+    return _scalar(a, torch.linalg.vector_norm(_inexact(a).reshape(-1), ord))
+
+
+def matrix_norm(a: DNDarray, ord=None) -> DNDarray:
+    """numpy's ``linalg.norm(a, ord)`` (Frobenius for a matrix and None)."""
+    sanitize_in(a)
+    return _scalar(a, torch.linalg.norm(_inexact(a), ord))
+
+
+def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optional[int] = None) -> DNDarray:
+    """Outer product of two (flattened) vectors, laid out at ``split``
+    (default: rows when either input is split)."""
+    sanitize_in(a)
+    sanitize_in(b)
+    promoted = types.promote_types(a.dtype, b.dtype)
+    dtype = promoted.torch_type()
+    garr = torch.outer(a.larray.reshape(-1).to(dtype), b.larray.reshape(-1).to(dtype))
+    if split is None:
+        split = 0 if (a.split is not None or b.split is not None) else None
+    split = sanitize_axis(tuple(garr.shape), split)
+    return _out(out, DNDarray(garr, tuple(garr.shape), promoted, split, a.device, a.comm))
+
+
+def projection(a: DNDarray, b: DNDarray) -> DNDarray:
+    """Projection of vector ``a`` onto vector ``b``."""
+    from .. import arithmetics
+
+    sanitize_in(a)
+    sanitize_in(b)
+    if a.ndim != 1 or b.ndim != 1:
+        raise RuntimeError(f"projection requires 1-D vectors, got {a.ndim}-d and {b.ndim}-d")
+    return arithmetics.mul(b, dot(a, b).item() / dot(b, b).item())
+
+
+def transpose(a: DNDarray, axes: Optional[List[int]] = None) -> DNDarray:
+    """Permute the axes (default: reverse them); the split follows its axis."""
+    sanitize_in(a)
+    if axes is None:
+        axes = tuple(reversed(range(a.ndim)))
+    else:
+        axes = tuple(int(ax) % a.ndim for ax in axes)
+        if len(axes) != a.ndim or len(set(axes)) != a.ndim:
+            raise ValueError("axes do not match array")
+    garr = a.larray.permute(axes).contiguous()
+    split = axes.index(a.split) if a.split is not None else None
+    return DNDarray(garr, tuple(garr.shape), a.dtype, split, a.device, a.comm)
+
+
+def __tri_op(m: DNDarray, k: int, op) -> DNDarray:
+    """tril/triu of the last two axes; a vector first becomes the square
+    matrix whose rows are all that vector (numpy's rule)."""
+    sanitize_in(m)
+    arr = m.larray
+    if m.ndim < 2:
+        arr = arr.expand(m.shape[0], m.shape[0])
+    garr = op(arr, diagonal=k)
+    return DNDarray(garr, tuple(garr.shape), m.dtype, m.split, m.device, m.comm)
+
+
+def tril(m: DNDarray, k: int = 0) -> DNDarray:
+    """Lower-triangular part (on and below diagonal ``k``)."""
+    return __tri_op(m, k, torch.tril)
+
+
+def triu(m: DNDarray, k: int = 0) -> DNDarray:
+    """Upper-triangular part (on and above diagonal ``k``)."""
+    return __tri_op(m, k, torch.triu)

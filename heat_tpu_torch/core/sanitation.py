@@ -9,7 +9,19 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple, Union
 
-__all__ = ["merge_keepdims", "sanitize_axis", "sanitize_in", "sanitize_predict_in"]
+__all__ = ["as_tensors", "merge_keepdims", "sanitize_axis", "sanitize_in", "sanitize_predict_in"]
+
+
+def as_tensors(*operands) -> tuple:
+    """The operands as tensors: a DNDarray's values, anything else (a
+    number, a numpy array) put on the device of the first DNDarray among
+    them, so a comparison with host data runs where the array lives."""
+    import torch
+
+    from .dndarray import DNDarray
+
+    dev = next((t.larray.device for t in operands if isinstance(t, DNDarray)), None)
+    return tuple(t.larray if isinstance(t, DNDarray) else torch.as_tensor(t, device=dev) for t in operands)
 
 
 def merge_keepdims(keepdims, keepdim) -> bool:

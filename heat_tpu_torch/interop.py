@@ -3,9 +3,11 @@
 The system runs no model, so what crosses over is the global data and the
 fitted estimator state, both as numpy arrays: :func:`array_from_numpy`
 takes the global array the JAX package's ``DNDarray.numpy()`` (or
-``numpy.asarray`` of a jax array) returns, and
+``numpy.asarray`` of a jax array) returns,
 :meth:`heat_tpu_torch.cluster.KMeans.from_fitted` takes a fitted KMeans's
-centers, iteration count and inertia.
+centers, iteration count and inertia, and
+:meth:`heat_tpu_torch.regression.Lasso.from_fitted` a fitted Lasso's theta
+(intercept first) and iteration count.
 
 numpy has no bfloat16: a JAX bfloat16 array leaves as an
 ``ml_dtypes.bfloat16`` array.  :func:`tensor_from_numpy` carries its bits

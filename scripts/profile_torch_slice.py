@@ -12,9 +12,16 @@ cdist on 20 000 rows, and, at four positions on the one card under the
 error-feedback KMeans fit; then, at the reference benchmark's attention
 shape (S=4096, H=16, D=64, bf16, causal), one single-card
 ``flash_attention`` call and one zig-zag ``ring_attention`` call at four
-positions.  For each it prints the wall time, the summed
+positions; then one ``qr`` + ``svd`` of the tall-skinny 131 072 x 64
+float32 matrix at one and at four positions, one Lasso coordinate-descent
+sweep at one position (a fit with ``max_iter=1``, its set-up included), and
+Lasso ISTA fits of 1 and 11 steps at four positions under ``int8_block``
+(their difference is ten steps, without the step-size power iteration).
+For each it prints the wall time, the summed
 device time of the kernels and their share of the wall time (the device's
-busy share), and the kernels that take the most device time.
+busy share), the host's waits on the device (synchronize calls of the
+CUDA runtime, and reads of a device scalar such as ``bool(t)``), and the
+kernels that take the most device time.
 """
 
 from __future__ import annotations
@@ -43,9 +50,15 @@ def profile(torch, label: str, fn, top: int = 8) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies, memsets): the aten ops that
     # launched them report the same device time again
-    kernels = []
+    kernels, syncs, reads = [], 0, 0
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or evt.key.startswith("Activity Buffer"):
+        if evt.device_type != DeviceType.CUDA:
+            if "Synchronize" in evt.key:
+                syncs += int(evt.count)
+            elif evt.key == "aten::_local_scalar_dense":
+                reads += int(evt.count)
+            continue
+        if evt.key.startswith("Activity Buffer"):
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -59,9 +72,12 @@ def profile(torch, label: str, fn, top: int = 8) -> dict:
         "wall_us": wall_us,
         "device_us": device_us,
         "busy_share": device_us / wall_us if wall_us else None,
+        "sync_calls": syncs,
+        "scalar_reads": reads,
         "top": [{"name": n[:90], "device_us": d, "calls": c} for n, d, c in kernels[:top]],
     }
-    print(f"{label}: wall {wall_us:.0f} us, device {device_us:.0f} us, busy {row['busy_share']:.3f}")
+    print(f"{label}: wall {wall_us:.0f} us, device {device_us:.0f} us, busy {row['busy_share']:.3f}, "
+          f"{syncs} synchronize calls, {reads} scalar reads")
     for k in row["top"]:
         print(f"    {k['device_us']:10.1f} us  {k['calls']:5d}x  {k['name']}")
     return row
@@ -115,6 +131,24 @@ def main() -> int:
                         lambda: htt.parallel.flash_attention(q, k, v, causal=True)))
     rows.append(profile(torch, "ring_attention bf16 zig-zag causal S=4096, 4 positions",
                         lambda: htt.parallel.ring_attention(qd, kd, vd, causal=True), top=12))
+    a = torch.from_numpy(
+        np.random.default_rng(2).normal(size=(cs.QR_M, cs.QR_N)).astype(np.float32)
+    ).to(dev)
+    for comm, label in ((comm1, "1 position"), (comm4, "4 positions")):
+        A = htt.array(a, split=0, comm=comm)
+        rows.append(profile(torch, f"qr+svd {cs.QR_M}x{cs.QR_N}, {label}",
+                            lambda: (htt.linalg.qr(A), htt.linalg.svd(A))))
+    y = cs.lasso_target(data).astype(np.float32)
+    Y1, Y4 = htt.array(y, split=0, comm=comm1), htt.array(y, split=0, comm=comm4)
+    lasso = htt.regression.Lasso
+    rows.append(profile(torch, "lasso cd, 1 sweep, 1 position",
+                        lambda: lasso(lam=cs.LASSO_LAM, max_iter=1, tol=-1.0).fit(X1, Y1), top=10))
+    with cq.collective_precision("int8_block"):
+        for steps in (1, 11):
+            rows.append(profile(
+                torch, f"lasso gd int8_block, {steps} step(s), 4 positions",
+                lambda: lasso(lam=cs.LASSO_LAM, max_iter=steps, tol=-1.0, solver="gd").fit(X4, Y4),
+                top=12))
     card = cs.card_line()
     print(card)
     if args.out:

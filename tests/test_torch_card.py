@@ -26,10 +26,22 @@ tiles, a K/V ring that wraps past its stages, diagonal tiles that straddle
 mid-tile, head widths that TMA pads with zeros, four positions on distinct
 bases (one fully masked) and the zig-zag ring's non-contiguous slices.
 Each wrapper's launch count is checked per call.
+
+The slice's linear algebra and Lasso run on the card at small sizes
+against float64: matmul in every split combination (integer operands
+included, which take an exact broadcast product since cuBLAS has none),
+QR and SVD at 1 and 4 positions (float32: relative residual 1e-5 and
+orthonormality 1e-4, as ``chip_smoke.py`` phase 7 holds them; float64:
+1e-12) and the SVD of a matrix of condition 1e6 and of a rank-deficient
+one (S within 1e-5 of the largest singular value), Lasso cd and gd against a float64 numpy replay, and the exact
+kernel launches of a quantized ISTA step (2 quantize, 3 hops, 1
+dequantize_fma, 1 dequantize at 4 positions).  ``allclose`` and ``equal``
+of a card array and host data compare on the card.
 """
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -273,3 +285,157 @@ def test_attention_wrappers_count_kernel_launches(cuda_device):
     assert count(lambda: htt.parallel.ring_attention(q, k, v, True, comm=comm)) == [0, 3 + 2 * (p - 1)]
     q8, k8, v8 = chip_smoke.attn_inputs((256 * p, 2 * p, 32), torch.float32, seed=7, dev=cuda_device)
     assert count(lambda: htt.parallel.ulysses_attention(q8, k8, v8, True, comm=comm)) == [1, 0]
+
+
+# --------------------------------------------------------------------- #
+# linear algebra and Lasso                                               #
+# --------------------------------------------------------------------- #
+def _tols(dtype):
+    """(relative residual, orthonormality) of a factorization in ``dtype``."""
+    return (chip_smoke.QR_TOL, chip_smoke.ORTH_TOL) if dtype == torch.float32 else (1e-12, 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("sa,sb", [(None, None), (0, 0), (0, 1), (1, 1), (1, 0), (None, 1)])
+def test_matmul_on_card_against_float64(cuda_device, p, sa, sb):
+    comm = htt.TorchCommunication([cuda_device] * p)
+    rng = np.random.default_rng(20)
+    a, b = rng.normal(size=(13, 7)), rng.normal(size=(7, 11))
+    got = htt.array(a.astype(np.float32), split=sa, comm=comm) @ htt.array(b.astype(np.float32), split=sb, comm=comm)
+    np.testing.assert_allclose(got.numpy(), a @ b, rtol=1e-5, atol=1e-5)
+    ai, bi = rng.integers(-9, 10, size=(13, 7)), rng.integers(-9, 10, size=(7, 11))
+    goti = htt.array(ai.astype(np.int32), split=sa, comm=comm) @ htt.array(bi.astype(np.int32), split=sb, comm=comm)
+    assert goti.dtype is htt.int32
+    np.testing.assert_array_equal(goti.numpy(), ai @ bi)
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qr_svd_on_card_against_float64(cuda_device, p, split, dtype):
+    comm = htt.TorchCommunication([cuda_device] * p)
+    a64 = torch.from_numpy(np.random.default_rng(21).normal(size=(2048, 24))).to(cuda_device)
+    x = htt.array(a64.to(dtype), split=split, comm=comm)
+    res_tol, orth_tol = _tols(dtype)
+    norm = float(torch.linalg.norm(a64))
+    eye = torch.eye(24, dtype=torch.float64, device=cuda_device)
+    q, r = htt.linalg.qr(x)
+    Q, R = q.larray.double(), r.larray.double()
+    assert q.split == split and r.split == (1 if split == 1 else None)
+    assert float(torch.linalg.norm(Q @ R - a64)) / norm <= res_tol
+    assert float((Q.T @ Q - eye).abs().max()) <= orth_tol
+    assert bool((torch.tril(r.larray, -1) == 0).all())
+    u, s, v = htt.linalg.svd(x)
+    s64 = torch.linalg.svdvals(a64)
+    assert float(((s.larray.double() - s64).abs() / s64).max()) <= chip_smoke.S_RTOL
+    rec = (u.larray.double() * s.larray.double()) @ v.larray.double().T
+    assert float(torch.linalg.norm(rec - a64)) / norm <= res_tol
+    only = htt.linalg.svd(x, compute_uv=False)
+    torch.testing.assert_close(only.larray, s.larray, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("kind", ["condition 1e6", "rank 20 of 24"])
+def test_svd_of_hard_matrices_on_card(cuda_device, p, kind):
+    """A float32 matrix of condition 1e6 or of deficient rank: its QR's
+    rounding (float32's eps times the largest singular value) bounds what
+    any SVD route can give, so S is held within 1e-5 of the largest
+    singular value of the matrix's float64 SVD, the reconstruction and the
+    orthonormality of U and V as phase 7 holds them."""
+    rng = np.random.default_rng(25)
+    m, n = 2048, 24
+    if kind.startswith("rank"):
+        a = rng.normal(size=(m, n))
+        a[:, -4:] = a[:, :4]
+    else:
+        left, right = np.linalg.qr(rng.normal(size=(m, n)))[0], np.linalg.qr(rng.normal(size=(n, n)))[0]
+        a = (left * np.logspace(0, -6, n)) @ right.T
+    a64 = torch.from_numpy(a.astype(np.float32)).to(cuda_device).double()
+    u, s, v = htt.linalg.svd(htt.array(a64.float(), split=0, comm=htt.TorchCommunication([cuda_device] * p)))
+    U, S, V = u.larray.double(), s.larray.double(), v.larray.double()
+    s64 = torch.linalg.svdvals(a64)
+    eye = torch.eye(n, dtype=torch.float64, device=cuda_device)
+    assert float((S - s64).abs().max()) <= 1e-5 * float(s64[0])
+    assert float(torch.linalg.norm((U * S) @ V.T - a64)) <= chip_smoke.QR_TOL * float(torch.linalg.norm(a64))
+    assert float((U.T @ U - eye).abs().max()) <= chip_smoke.ORTH_TOL
+    assert float((V.T @ V - eye).abs().max()) <= chip_smoke.ORTH_TOL
+
+
+def _lasso_data(n, f, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n, f)).astype(np.float32)
+    y = (a @ np.linspace(-2, 2, f) + 0.5 + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return a, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["cd", "gd"])
+def test_lasso_on_card_against_float64_replay(cuda_device, solver):
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    a, y = _lasso_data(4096, 8, 22)
+    x, yy = htt.array(a, split=0, comm=comm), htt.array(y, split=0, comm=comm)
+    want = chip_smoke.numpy_cd(a, y, 0.1, 300)  # converged: the minimiser in float64
+    if solver == "cd":
+        est = htt.regression.Lasso(lam=0.1, max_iter=20, tol=-1.0).fit(x, yy)
+        replay = chip_smoke.numpy_cd(a, y, 0.1, 20)
+        got = est.theta.numpy().reshape(-1)
+        assert np.abs(got - replay).max() <= chip_smoke.CD_TOL * np.abs(replay).max()
+    else:
+        est = htt.regression.Lasso(lam=0.1, max_iter=3000, tol=1e-7, solver="gd").fit(x, yy)
+        got = est.theta.numpy().reshape(-1)
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+    assert est.theta.larray.device.type == "cuda"
+    pred = est.predict(x)
+    assert pred.split == 0 and pred.larray.device.type == "cuda"
+    np.testing.assert_allclose(pred.numpy().reshape(-1), a @ got[1:] + got[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_quantized_ista_step_launches_on_card(cuda_device):
+    """m = 33 (the blobs' 32 features and the intercept) at 4 positions:
+    per step 2 quantize, 3 hops, 1 dequantize_fma, 1 dequantize."""
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    a, y = _lasso_data(1024, 32, 23)
+    x, yy = htt.array(a, split=0, comm=comm), htt.array(y, split=0, comm=comm)
+    counted = (tcq.quantize_blocks, tcq.dequantize_blocks, tcq.dequantize_fma_blocks,
+               tcq.dequantize_add_quantize_blocks)
+    steps = 5
+    exact = htt.regression.Lasso(lam=0.1, max_iter=400, tol=-1.0, solver="gd").fit(x, yy)
+    with tcq.collective_precision("int8_block"):
+        before = [c.launches for c in counted]
+        htt.regression.Lasso(lam=0.1, max_iter=steps, tol=-1.0, solver="gd").fit(x, yy)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counted, before)] == [2 * steps, steps, steps, 3 * steps]
+        comp = htt.regression.Lasso(lam=0.1, max_iter=400, tol=-1.0, solver="gd").fit(x, yy)
+
+    def loss(est):
+        th = est.theta.numpy().reshape(-1).astype(np.float64)
+        return chip_smoke.lasso_loss(a, y, th, 0.1)
+
+    assert abs(loss(comp) - loss(exact)) <= chip_smoke.LOSS_RTOL * loss(exact)
+
+
+@pytest.mark.gpu
+def test_comparisons_with_host_data_run_on_card(cuda_device, monkeypatch):
+    """allclose/equal with a numpy operand on either side put it on the
+    DNDarray's device: every tensor the comparison reaches is on the card."""
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    c = np.random.default_rng(24).normal(size=(37, 5)).astype(np.float32)
+    x = htt.array(c, split=0, comm=comm)
+    seen = []
+
+    def spy(fn):
+        def call(*args, **kw):
+            seen.append({t.device.type for t in args if isinstance(t, torch.Tensor)})
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(torch, "allclose", spy(torch.allclose))
+    monkeypatch.setattr(torch, "all", spy(torch.all))
+    assert htt.allclose(c, x) and htt.allclose(x, c) and not htt.allclose(x, c + 1)
+    assert htt.equal(c, x) and htt.equal(x, c) and not htt.equal(x, c + 1)
+    assert len(seen) == 6 and all(s == {"cuda"} for s in seen)

@@ -40,6 +40,27 @@ def test_import_leaves_jax_and_heat_tpu_out():
     assert proc.stdout.strip() == "ok"
 
 
+def test_each_slice_module_imports_without_jax_or_heat_tpu():
+    modules = [
+        "heat_tpu_torch.core.linalg.basics", "heat_tpu_torch.core.linalg.qr",
+        "heat_tpu_torch.core.linalg.svd", "heat_tpu_torch.core.linalg.solver",
+        "heat_tpu_torch.regression.lasso", "heat_tpu_torch.core.exponential",
+        "heat_tpu_torch.core.rounding", "heat_tpu_torch.core.relational",
+        "heat_tpu_torch.core.logical", "heat_tpu_torch.core.trigonometrics",
+    ]
+    proc = _run(
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
