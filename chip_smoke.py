@@ -71,7 +71,28 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    loss within 1e-3 of the exact one's (the reference's own gate); the
    kernels' launch counts are set to 0 before the compressed fit and read
    after it, and must be exactly 2 quantize, 3 hops, 1 dequantize_fma and
-   1 dequantize a step.
+   1 dequantize a step; the QR input is drawn as the reference benchmark
+   draws it, ``randn(131072, 64, split=0)``;
+8. the threefry RNG and the estimators that draw from it: the draws of
+   the main path (``randn`` 131 072 x 64, ``rand`` 20 000 x 300, ``randint``
+   and ``randperm`` over the blobs) on the card at 1 and 4 positions, bit
+   for bit the port's CPU draws of the same seed and counter (``randn``
+   within 4 ulps), the counter advancing by the elements drawn; KMeans
+   with ``init="random"`` and k-means++ on the blobs (the initial centers
+   the rows a CPU draw and a float64 replay of the d^2 CDF pick, or for a
+   draw within 1e-5 of a CDF step a row that reaches it; each step of the
+   fit held to a float64
+   numpy Lloyd step, labels equal off float32 ties); KMedians
+   (30 steps bitwise equal to numpy's medians) and KMedoids (30 steps
+   each held to numpy's snapped means) from the generating centers, and
+   their "++" inits; Spectral on 20 000 rows (V orthonormal to 1e-4,
+   ``||V^T L V - T|| / ||T|| <= 1e-4``, the 8 smallest Ritz residuals
+   under 1e-4, the blob labels recovered at least as well as the
+   reference on the CPU); GaussianNB exact (1e-10 of float64 numpy,
+   predict equal to numpy's argmax) and under ``int8_block`` at 4
+   positions (sigma_ within the ring bound; exactly 1 quantize, 3 hops,
+   1 dequantize launched by the fit); KNN (k=5, 20 000 x 20 000) equal to
+   a numpy replay off distance ties; an int64 2048^3 product, exact.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -133,6 +154,34 @@ LASSO_LAM, LASSO_SWEEPS, LASSO_STEPS = 0.1, 50, 1000
 #: carries the step size); the compressed gd loss against the exact one
 #: (the reference's gate)
 CD_TOL, GD_TOL, LOSS_RTOL = 1e-4, 1e-4, 1e-3
+#: phase 8's draws at the main path's sizes: the reference benchmark's QR
+#: input (bench.py:2189), a 20 000-row Spectral fit's Lanczos restart
+#: matrix, k-means++'s first row and KMeans' random init over the blobs
+RNG_DRAWS = (("randn", (QR_M, QR_N)), ("rand", (SUB, 300)), ("randint", (0, N, (1,))), ("randperm", (N,)))
+#: randn against the port's CPU draw: torch's log1p on the card is not the
+#: CPU's (tests/test_torch_random.py holds the CPU to the reference so)
+RANDN_ULPS = 4
+#: a k-means++ draw closer than this share of the total to a step of the
+#: d^2 CDF may pick a neighbouring row where two float32 cumsums round
+#: apart (the CPU tests assert no draw of their few hundred rows comes so
+#: close; over the blobs' 500 000 rows the steps lie 2e-6 apart on
+#: average, so there a pick is held to the float64 row or, for a draw
+#: this close, to the rows whose interval reaches it)
+KPP_GAP = 1e-5
+#: Spectral on every 25th row of the blobs (phase 3's SUB rows): the rbf
+#: similarity is about 0.94 within a blob and 1.7e-3 across, so the graph
+#: is connected and the eigengap after the 8th eigenvalue is clear
+SPECTRAL_GAMMA, SPECTRAL_M = 1e-3, 300
+#: the share of blob labels the JAX package's Spectral recovers on the CPU
+#: at 2 000 rows (every 250th) of the same blobs, with these settings:
+#: 1.0, from scripts/spectral_reference_share.py
+SPECTRAL_SHARE = 1.0
+#: the 8 smallest Ritz pairs' residuals ||L u - theta u|| (||L|| <= 2):
+#: 2e-7 at 2 000 rows on the CPU, float32's reach
+RITZ_TOL = 1e-4
+#: KMedians/KMedoids fits: the benchmark's steps (medians_medoids_rates)
+MED_STEPS = 30
+KNN_K = 5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -933,8 +982,9 @@ def phase_linalg_lasso(torch, htt, cq, dev, data, counted):
     kernels' launch counts of the compressed gd fit and the metrics."""
     metrics = {}
     m, n, sweeps, steps = QR_M, QR_N, LASSO_SWEEPS, LASSO_STEPS
-    a_np = np.random.default_rng(2).normal(size=(m, n)).astype(np.float32)
-    A = torch.from_numpy(a_np).to(dev)
+    # drawn as the reference benchmark draws it (bench.py:2189)
+    htt.random.seed(0)
+    A = htt.random.randn(m, n, split=0, comm=htt.TorchCommunication([dev])).larray
     A64 = A.double()
     s64 = torch.linalg.svdvals(A64)
     norm_a = float(torch.linalg.norm(A64))
@@ -1023,6 +1073,409 @@ def phase_linalg_lasso(torch, htt, cq, dev, data, counted):
           f"{le:.7g}, int8_block {lq:.7g} (rel {abs(lq - le) / le:.3g}, start {l0:.4g}); launches {launches}; exact "
           f"{metrics['lasso_gd_iter_per_s']:.1f} iter/s, int8_block "
           f"{metrics['lasso_gd_int8_4pos_iter_per_s']:.1f} iter/s")
+    return launches, metrics
+
+
+# --------------------------------------------------------------------- #
+# the RNG and the estimators that draw from it (phase 8)                  #
+# --------------------------------------------------------------------- #
+def label_share(labels: np.ndarray, truth: np.ndarray, k: int) -> float:
+    """The share of rows whose label maps to their true label under the
+    best one-to-one relabelling."""
+    from scipy.optimize import linear_sum_assignment
+
+    counts = np.zeros((k, k))
+    np.add.at(counts, (labels, truth), 1)
+    rows, cols = linear_sum_assignment(-counts)
+    return float(counts[rows, cols].sum() / len(labels))
+
+
+def ulps_from(a: np.ndarray, b: np.ndarray) -> float:
+    """Largest distance of ``a`` from ``b`` in ulps of ``b``'s dtype, the ulp
+    taken at each element of ``b``."""
+    return float((np.abs(a.astype(np.float64) - b) / np.spacing(np.abs(b))).max())
+
+
+def kpp_check(data64: np.ndarray, picks, us: np.ndarray, margin: float = KPP_GAP):
+    """Hold k-means++ picks (row indices, the first one given) to a float64
+    replay of the d^2 CDF from the same picks: pick i must be the row in
+    whose CDF interval ``us[i] * total`` falls (left side), or, where that
+    draw lies within ``margin`` of the total from a CDF step (where two
+    float32 cumsums may round apart), a row whose interval reaches within
+    that margin of it.  Returns the number of such draws near a step and
+    the smallest distance of a draw from a step, as a share of the total."""
+    dmin, near, gmin = np.full(len(data64), np.inf), 0, np.inf
+    for i in range(1, len(picks)):
+        dmin = np.minimum(dmin, ((data64 - data64[picks[i - 1]]) ** 2).sum(1))
+        cdf = np.cumsum(dmin)
+        total = cdf[-1]
+        draw = float(us[i]) * total
+        j = min(int(np.searchsorted(cdf, draw)), len(cdf) - 1)
+        gap = float(np.abs(cdf[max(j - 1, 0):j + 1] - draw).min() / total)
+        gmin = min(gmin, gap)
+        if int(picks[i]) != j:
+            lo = cdf[picks[i] - 1] if picks[i] else 0.0
+            check(gap <= margin and lo - margin * total <= draw <= cdf[picks[i]] + margin * total,
+                  f"k-means++ draw {i} picked row {picks[i]}, the float64 CDF row {j} "
+                  f"(the draw {gap:.3g} of the total from a step)")
+            near += 1
+    return near, gmin
+
+
+def rows_of(data: np.ndarray, centers: np.ndarray) -> list:
+    """The index of each center among the rows of ``data`` (raises when a
+    center is not a row)."""
+    idx = []
+    for c in centers:
+        hit = np.flatnonzero((data == c).all(1))
+        check(len(hit) == 1, f"a center is not a row of the data ({len(hit)} matches)")
+        idx.append(int(hit[0]))
+    return idx
+
+
+def nb_log_likelihood(x64: np.ndarray, theta, sigma, prior) -> np.ndarray:
+    """GaussianNB's joint log-likelihood in float64 numpy."""
+    n_ij = -0.5 * np.log(2.0 * np.pi * sigma).sum(1)
+    ll = np.stack([n_ij[c] - 0.5 * (((x64 - theta[c]) ** 2) / sigma[c]).sum(1) for c in range(len(theta))], 1)
+    return np.log(np.maximum(prior, 1e-300))[None, :] + ll
+
+
+def knn_replay(train: np.ndarray, labels: np.ndarray, query: np.ndarray, k: int, classes: int):
+    """KNN in float64 numpy: the k nearest training rows of each query
+    (argsort of the distances), their vote, the lowest class of most votes;
+    and the rows where the k-th and (k+1)-th distances tie within float32
+    rounding of the quadratic expansion (where either neighbour may win)."""
+    t64, q64 = train.astype(np.float64), query.astype(np.float64)
+    t2 = (t64 * t64).sum(1)
+    pred, tie = np.empty(len(q64), np.int64), np.zeros(len(q64), bool)
+    for lo in range(0, len(q64), 1000):
+        q = q64[lo:lo + 1000]
+        q2 = (q * q).sum(1)[:, None]
+        d2 = q2 + t2[None, :] - 2.0 * q @ t64.T
+        part = np.argpartition(d2, k, axis=1)[:, :k + 1]
+        order = np.take_along_axis(d2, part, 1).argsort(1)
+        near = np.take_along_axis(part, order, 1)
+        dk = np.take_along_axis(d2, near, 1)
+        tol = 64 * np.finfo(np.float32).eps * (q2[:, 0] + t2[near[:, k]])
+        tie[lo:lo + 1000] = dk[:, k] - dk[:, k - 1] <= tol
+        votes = np.stack([(labels[near[:, :k]] == c).sum(1) for c in range(classes)], 1)
+        pred[lo:lo + 1000] = votes.argmax(1)
+    return pred, tie
+
+
+def phase_rng(torch, htt, dev):
+    """Phase 8, first part: the draws on the card at 1 and POSITIONS
+    positions against the port's CPU draws of the same seed and counter,
+    and the counter advancing by the elements drawn.  Returns the metrics."""
+    import math
+
+    cpu = htt.TorchCommunication(["cpu"])
+    got = {}
+    for p in (1, POSITIONS):
+        comm = htt.TorchCommunication([dev] * p)
+        htt.random.seed(0)
+        counter = 0
+        for fn, args in RNG_DRAWS:
+            out = getattr(htt.random, fn)(*args, split=0, comm=comm)
+            counter += math.prod(args[2] if fn == "randint" else args)
+            check(htt.random.get_state() == ("Threefry", 0, counter, 0, 0.0),
+                  f"{fn} at {p} position(s): state {htt.random.get_state()}, counter {counter} expected")
+            check(out.larray.device.type == "cuda", f"{fn} drew off the card")
+            got[p, fn] = out.larray
+    htt.random.seed(0)
+    for fn, args in RNG_DRAWS:
+        want = getattr(htt.random, fn)(*args, split=0, comm=cpu).larray
+        card, card4 = got[1, fn], got[POSITIONS, fn]
+        check(bitwise_equal(card, card4), f"{fn}: 1 and {POSITIONS} positions differ on the card")
+        if fn == "randn":
+            u = ulps_from(card.cpu().numpy(), want.numpy())
+            check(u <= RANDN_ULPS, f"randn: {u} ulps from the CPU draw > {RANDN_ULPS}")
+            same = float((card.cpu() == want).double().mean())
+            print(f"randn {tuple(args)}: {u:.0f} ulps at most from the CPU draw ({same:.4f} bitwise equal)")
+        else:
+            check(bitwise_equal(card.cpu(), want), f"{fn} on the card != the CPU draw")
+            print(f"{fn} {tuple(args)}: bitwise equal to the CPU draw, at 1 and {POSITIONS} positions")
+    perm = got[1, "randperm"].cpu().numpy()
+    check(bool((np.sort(perm) == np.arange(N)).all()), "randperm is not a permutation")
+
+    comm1 = htt.TorchCommunication([dev])
+    randn_ms = device_ms(lambda: htt.random.randn(QR_M, QR_N, split=0, comm=comm1), [()])
+    metrics = {
+        "rng_randn_gb_per_s": QR_M * QR_N * 4 / randn_ms / 1e6,
+        "rng_randn_wall_ms": wall_ms(lambda: htt.random.randn(QR_M, QR_N, split=0, comm=comm1)),
+        "randperm_500k_ms": wall_ms(lambda: htt.random.randperm(N, comm=comm1)),
+        "randperm_500k_device_ms": device_ms(lambda: htt.random.randperm(N, comm=comm1), [()]),
+    }
+    print(f"randn {QR_M} x {QR_N}: {randn_ms:.3f} ms of device time, "
+          f"{metrics['rng_randn_gb_per_s']:.1f} GB/s written; randperm({N}): "
+          f"{metrics['randperm_500k_ms']:.3f} ms wall, {metrics['randperm_500k_device_ms']:.3f} ms device")
+    return metrics
+
+
+def phase_kclusterers(torch, htt, dev, data, centers):
+    """Phase 8, second part: KMeans with its string inits, KMedians and
+    KMedoids on the blobs at one position.  Returns the metrics."""
+    from heat_tpu_torch.cluster.kmeans import _assign
+
+    comm1, cpu = htt.TorchCommunication([dev]), htt.TorchCommunication(["cpu"])
+    X = htt.array(data, split=0, comm=comm1)
+    arr = X.larray
+    d64 = data.astype(np.float64)
+    metrics = {}
+    state = ("Threefry", 7, 0, 0, 0.0)
+
+    # KMeans with its defaults: init="random" (k rows at randperm's first k
+    # places), then k-means++.  Each step of the fit is held to a float64
+    # numpy Lloyd step from the same centers: the labels equal off float32
+    # ties, the new centers the means of the port's labels.  (A whole
+    # float32 trajectory is not comparable after a blob is split between
+    # two centers: its tie flips drift, 0.023 between torch on the CPU and
+    # numpy after the 109 steps of the random init's fit.)
+    x2 = (d64 * d64).sum(1)
+    for init, key in (("random", "kmeans_random_init_ms"), ("probability_based", "kmeanspp_init_ms")):
+        htt.random.set_state(state)
+        km = htt.cluster.KMeans(n_clusters=K, init=init)
+        km._initialize_cluster_centers(X)
+        init_c = km.cluster_centers_.larray
+        htt.random.set_state(state)
+        rows = rows_of(data, init_c.cpu().numpy())
+        if init == "random":
+            check(rows == htt.random.randperm(N, comm=cpu).larray[:K].tolist(),
+                  f"KMeans init=random: rows {rows}, not the CPU draw's")
+            drawn = ""
+        else:
+            first = int(htt.random.randint(0, N, (1,), comm=cpu).larray[0])
+            us = htt.random.rand(K, comm=cpu).larray.numpy()
+            check(rows[0] == first, f"k-means++ first row {rows[0]}, not the CPU draw's {first}")
+            near, gmin = kpp_check(d64, rows, us)
+            drawn = (f" ({near} picks off the float64 CDF's row, each by a draw within {KPP_GAP} "
+                     f"of a step; the closest draw {gmin:.3g} of the total from a step)")
+        htt.random.set_state(state)
+        fitted = htt.cluster.KMeans(n_clusters=K, init=init).fit(X)
+        carry, tol, flips, c_err = (0, init_c, float("inf")), float(np.float32(km.tol)), 0, 0.0
+        while carry[0] < km.max_iter and carry[2] > tol:
+            lab = _assign(arr, carry[1]).cpu().numpy()
+            c64 = carry[1].double().cpu().numpy()
+            # d^2 less the row's |x|^2, which moves neither argmin nor gaps
+            d2 = d64 @ (-2.0 * c64.T)
+            d2 += (c64 * c64).sum(1)
+            best = d2.argmin(1)
+            first = d2[np.arange(N), best]
+            d2[np.arange(N), best] = np.inf
+            ties = d2.min(1) - first <= 64 * np.finfo(np.float32).eps * (x2 + (c64 * c64).sum(1).max())
+            off = lab != best
+            check(not bool((off & ~ties).any()), f"KMeans init={init} step {carry[0]}: labels off ties")
+            flips += int(off.sum())
+            carry = htt.cluster.KMeans._fit_segment(arr, tol, carry[0] + 1, carry)
+            counts = np.bincount(lab, minlength=K)[:, None]
+            sums = np.eye(K)[lab].T @ d64
+            means = np.where(counts > 0, sums / np.maximum(counts, 1), c64)
+            got = carry[1].cpu().numpy()
+            check(np.allclose(got, means, rtol=1e-5, atol=1e-4), f"KMeans init={init} step {carry[0]}: centers")
+            c_err = max(c_err, float(np.abs(got - means).max()))
+        check(carry[0] == fitted.n_iter_ and bitwise_equal(carry[1], fitted.cluster_centers_.larray),
+              f"KMeans init={init}: the fit != its steps")
+
+        def init_once(init=init):
+            htt.random.set_state(state)
+            htt.cluster.KMeans(n_clusters=K, init=init)._initialize_cluster_centers(X)
+
+        metrics[key] = wall_ms(init_once)
+        print(f"KMeans init={init}: rows {rows}{drawn}, {fitted.n_iter_} steps, each held to float64 numpy ({flips} labels on float32 ties, "
+              f"centers within {c_err:.3g}); init {metrics[key]:.3f} ms")
+
+    # KMedians: the benchmark's init (the generating centers), exactly
+    # MED_STEPS steps, against numpy's median of each cluster's rows under
+    # the port's own labels, step by step
+    init = htt.array(centers, comm=comm1)
+    med = htt.cluster.KMedians(n_clusters=K, init=init, max_iter=MED_STEPS, tol=-1.0).fit(X)
+    check(med.n_iter_ == MED_STEPS, f"KMedians ran {med.n_iter_} steps")
+    c, made_by = centers.copy(), None
+    for _ in range(MED_STEPS):
+        lab = _assign(arr, torch.from_numpy(c).to(dev)).cpu().numpy()
+        if made_by is not None and np.array_equal(lab, made_by):
+            continue  # the labels that made c: the same medians again
+        c = np.stack([np.median(data[lab == j], axis=0) if (lab == j).any() else c[j]
+                      for j in range(K)]).astype(np.float32)
+        made_by = lab
+    check(bool((med.cluster_centers_.numpy() == c).all()), "KMedians centers != numpy's medians, bitwise")
+    med_ms = wall_ms(lambda: htt.cluster.KMedians(n_clusters=K, init=init, max_iter=MED_STEPS, tol=-1.0).fit(X),
+                     reps=3)
+    metrics["kmedians_iter_per_s"] = MED_STEPS / med_ms * 1e3
+
+    # KMedoids: MED_STEPS assign-and-snap steps from the same init, each
+    # held to numpy: the mean of each cluster's rows (float64) snapped to
+    # its nearest member (float64 distances); a member whose distance ties
+    # the nearest within float32 rounding may win instead
+    KMedoids = htt.cluster.KMedoids
+    c_t = torch.from_numpy(centers).to(dev)
+    ties, held = 0, None
+    for _ in range(MED_STEPS):
+        lab = _assign(arr, c_t).cpu().numpy()
+        nxt = KMedoids._step_loop(arr, c_t, 1)
+        got = nxt.cpu().numpy()
+        if held is not None and bitwise_equal(held, c_t) and bitwise_equal(nxt, c_t):
+            continue  # a fixed point, its step already held to numpy
+        held = c_t
+        for j in range(K):
+            rows = np.flatnonzero(lab == j)
+            if not len(rows):
+                check(bool((got[j] == c_t[j].cpu().numpy()).all()), "KMedoids moved an empty cluster")
+                continue
+            mean = d64[rows].mean(0)
+            dist = ((d64[rows] - mean) ** 2).sum(1)
+            best = rows[int(dist.argmin())]
+            if not (got[j] == data[best]).all():
+                pick = np.flatnonzero((data[rows] == got[j]).all(1))
+                tol = 64 * np.finfo(np.float32).eps * float((mean * mean).sum() + (d64[best] ** 2).sum())
+                check(len(pick) == 1 and dist[pick[0]] - dist.min() <= tol,
+                      f"KMedoids center {j} is not its cluster's medoid (or a tie of it)")
+                ties += 1
+        c_t = nxt
+    fit = KMedoids(n_clusters=K, init=init, max_iter=MED_STEPS).fit(X)
+    check(bitwise_equal(fit.cluster_centers_.larray, KMedoids._step_loop(arr, init.larray, fit.n_iter_)),
+          "KMedoids.fit != its steps")
+    check(all((data == row).all(1).any() for row in fit.cluster_centers_.numpy()),
+          "KMedoids centers are not data rows")
+    medoid_ms = wall_ms(lambda: KMedoids._step_loop(arr, init.larray, MED_STEPS), reps=3)
+    metrics["kmedoids_iter_per_s"] = MED_STEPS / medoid_ms * 1e3
+
+    # the "++" inits through the RNG: the initial centers are the float64
+    # replay's rows, the fits run
+    for cls, alias in ((htt.cluster.KMedians, "kmedians++"), (KMedoids, "probability_based")):
+        htt.random.set_state(state)
+        first = int(htt.random.randint(0, N, (1,), comm=cpu).larray[0])
+        us = htt.random.rand(K, comm=cpu).larray.numpy()
+        htt.random.set_state(state)
+        est = cls(n_clusters=K, init=alias, max_iter=MED_STEPS)
+        est._initialize_cluster_centers(X)
+        rows = rows_of(data, est.cluster_centers_.numpy())
+        check(rows[0] == first, f"{cls.__name__} {alias}: first row {rows[0]}, not the CPU draw's {first}")
+        kpp_check(d64, rows, us)
+        est.fit(X)
+        check(bool(np.isfinite(est.cluster_centers_.numpy()).all()), f"{cls.__name__} {alias}: fit")
+    print(f"KMedians {MED_STEPS} steps bitwise equal to numpy's medians, "
+          f"{metrics['kmedians_iter_per_s']:.1f} iter/s; KMedoids {MED_STEPS} steps held to numpy "
+          f"({ties} float32 ties), fit converged in {fit.n_iter_} steps, "
+          f"{metrics['kmedoids_iter_per_s']:.1f} iter/s")
+    return metrics
+
+
+def phase_spectral_nb_knn(torch, htt, cq, dev, data, counted):
+    """Phase 8, third part: Spectral on SUB rows, GaussianNB exact and
+    under int8_block at POSITIONS positions (the kernels' launches of its
+    fit), KNN.  Returns the launch counts and the metrics."""
+    comm1, comm4 = htt.TorchCommunication([dev]), htt.TorchCommunication([dev] * POSITIONS)
+    truth = np.repeat(np.arange(K), N // K)
+    metrics = {}
+
+    # Spectral: the Lanczos basis and T, the Ritz pairs, the labels
+    sub, t_sub = data[::N // SUB], truth[::N // SUB]
+    Xs = htt.array(sub, split=0, comm=comm1)
+    sp = htt.cluster.Spectral(n_clusters=K, gamma=SPECTRAL_GAMMA, metric="rbf", n_lanczos=SPECTRAL_M)
+    L = sp._laplacian.construct(Xs)
+    v0 = htt.full((SUB,), 1.0 / np.sqrt(SUB), dtype=htt.float32, comm=comm1)
+    t0 = time.perf_counter()
+    V, T = htt.linalg.lanczos(L, SPECTRAL_M, v0=v0)
+    torch.cuda.synchronize()
+    metrics["lanczos_ms"] = (time.perf_counter() - t0) * 1e3
+    Vd, Td, Ld = V.larray.double(), T.larray.double(), L.larray
+    eye = torch.eye(SPECTRAL_M, dtype=torch.float64, device=dev)
+    orth = float((Vd.T @ Vd - eye).abs().max())
+    LV = (Ld @ V.larray).double()
+    tri = float(torch.linalg.norm(Vd.T @ LV - Td) / torch.linalg.norm(Td))
+    theta, Y = torch.linalg.eigh(Td)
+    U = Vd @ Y[:, :K]
+    ritz = float(torch.linalg.vector_norm((LV @ Y[:, :K]) - U * theta[:K], dim=0).max())
+    check(orth <= ORTH_TOL, f"lanczos: max|V^T V - I| = {orth:.3g} > {ORTH_TOL}")
+    check(tri <= 1e-4, f"lanczos: ||V^T L V - T|| / ||T|| = {tri:.3g} > 1e-4")
+    check(ritz <= RITZ_TOL, f"lanczos: Ritz residual {ritz:.3g} > {RITZ_TOL}")
+    # device time of the 300 steps (busy 0.93 in the profile), one call a graph
+    metrics["lanczos_device_ms"] = device_ms(lambda: htt.linalg.lanczos(L, SPECTRAL_M, v0=v0), [()],
+                                             per_graph=1, trials=3)
+    del L, LV, Ld
+    t0 = time.perf_counter()
+    sp.fit(Xs)
+    torch.cuda.synchronize()
+    metrics["spectral_fit_ms"] = (time.perf_counter() - t0) * 1e3
+    share = label_share(sp.labels_.numpy(), t_sub, K)
+    check(share >= SPECTRAL_SHARE, f"Spectral recovers {share} of the blob labels < {SPECTRAL_SHARE}")
+    print(f"Spectral {SUB} rows: max|V^T V - I| {orth:.3g}, ||V^T L V - T||/||T|| {tri:.3g}, Ritz residual "
+          f"{ritz:.3g} (theta {theta[:K].cpu().numpy().round(5).tolist()}), label share {share}; lanczos "
+          f"{metrics['lanczos_ms']:.1f} ms ({metrics['lanczos_device_ms']:.1f} ms of device time), fit "
+          f"{metrics['spectral_fit_ms']:.1f} ms")
+
+    # GaussianNB on the blobs, labels their blob index
+    d64 = data.astype(np.float64)
+    nb = htt.naive_bayes.GaussianNB
+    X1, y1 = htt.array(data, split=0, comm=comm1), htt.array(truth, split=0, comm=comm1)
+    exact = nb().fit(X1, y1)
+    theta64 = np.stack([d64[truth == c].mean(0) for c in range(K)])
+    var64 = np.stack([d64[truth == c].var(0) for c in range(K)]) + 1e-9 * d64.var(0).max()
+    for name, got, want in (("theta_", exact.theta_, theta64), ("sigma_", exact.sigma_, var64)):
+        rel = float((np.abs(got - want) / np.abs(want)).max())
+        check(rel <= 1e-10, f"GaussianNB {name}: {rel:.3g} relative from float64 numpy > 1e-10")
+    pred = exact.predict(X1).numpy()
+    want_pred = nb_log_likelihood(d64, exact.theta_, exact.sigma_, exact.class_prior_).argmax(1)
+    check(bool((pred == want_pred).all()), "GaussianNB predict != numpy's argmax of the log-likelihood")
+    metrics["gaussian_nb_fit_ms"] = wall_ms(lambda: nb().fit(X1, y1), reps=3)
+
+    X4, y4 = htt.array(data, split=0, comm=comm4), htt.array(truth, split=0, comm=comm4)
+    with cq.collective_precision("int8_block"):
+        for fn in counted:
+            fn.launches = 0
+        comp = nb().fit(X4, y4)
+        torch.cuda.synchronize()
+        launches = {f"blockquant_{fn.__name__.removesuffix('_blocks')}": fn.launches for fn in counted}
+        metrics["gaussian_nb_int8_4pos_fit_ms"] = wall_ms(lambda: nb().fit(X4, y4), reps=3)
+    # one ring_allreduce_q of the (4, k, f) ssd partials: its first encode,
+    # POSITIONS - 1 reduce-scatter hops and the gather's decode
+    expected = {"blockquant_quantize": 1, "blockquant_dequantize": 1, "blockquant_dequantize_fma": 0,
+                "blockquant_dequantize_add_quantize": POSITIONS - 1}
+    check(launches == expected, f"GaussianNB int8 launches {launches} != {expected}")
+    blocks, lab4 = d64.reshape(POSITIONS, -1, F), truth.reshape(POSITIONS, -1)
+    parts = np.stack([np.stack([((blocks[i][lab4[i] == c] - theta64[c]) ** 2).sum(0) for c in range(K)])
+                      for i in range(POSITIONS)])
+    bound = (POSITIONS + 1) * float(np.abs(parts).reshape(POSITIONS, -1).max(1).sum()) / 254.0 / (N // K)
+    s_err = float(np.abs(comp.sigma_ - exact.sigma_).max())
+    check(s_err <= bound, f"GaussianNB int8: sigma_ {s_err:.3g} from exact > the ring bound {bound:.3g}")
+    # the compressed fit's means come from float32 sums (combined exactly):
+    # within float32's summation bound n eps sum|x| / count of the exact ones
+    t_err = np.abs(comp.theta_ - exact.theta_)
+    t_bound = (N // POSITIONS) * float(np.finfo(np.float32).eps) * np.stack(
+        [np.abs(d64[truth == c]).sum(0) for c in range(K)]) / (N // K)
+    check(bool((t_err <= t_bound).all()), f"GaussianNB int8: theta_ {t_err.max():.3g} from exact, "
+          f"past float32's summation bound {t_bound.min():.3g}")
+    print(f"GaussianNB: exact within 1e-10 of float64 numpy, predict == numpy on all {N} rows; int8_block "
+          f"at {POSITIONS} positions: sigma_ {s_err:.3g} from exact (bound {bound:.3g}), theta_ "
+          f"{t_err.max():.3g} (float32 sums), launches {launches}; "
+          f"fit {metrics['gaussian_nb_fit_ms']:.1f} ms, int8 {metrics['gaussian_nb_int8_4pos_fit_ms']:.1f} ms")
+
+    # KNN: train on SUB rows, predict SUB others
+    train, query = data[::N // SUB], data[1::N // SUB]
+    knn = htt.classification.KNN(htt.array(train, split=0, comm=comm1),
+                                 htt.array(t_sub, split=0, comm=comm1), KNN_K)
+    Q = htt.array(query, split=0, comm=comm1)
+    got = knn.predict(Q).numpy()
+    want, tie = knn_replay(train, t_sub, query, KNN_K, K)
+    off = got != want
+    check(not bool((off & ~tie).any()), f"KNN: {int((off & ~tie).sum())} labels differ from numpy off ties")
+    metrics["knn_predict_ms"] = wall_ms(lambda: knn.predict(Q))
+    metrics["knn_predict_device_ms"] = device_ms(lambda: knn.predict(Q), [()], per_graph=4, trials=5)
+    print(f"KNN {SUB} x {SUB}, k={KNN_K}: labels equal numpy's on every row but {int(off.sum())} "
+          f"({int(tie.sum())} rows with a distance tie at the k-th neighbour); predict "
+          f"{metrics['knn_predict_ms']:.2f} ms ({metrics['knn_predict_device_ms']:.2f} ms of device time)")
+
+    # an int64 2048^3 product (exact in float64: |a|, |b| < 1000)
+    rng = np.random.default_rng(3)
+    a, b = (torch.from_numpy(rng.integers(-1000, 1000, size=(2048, 2048))).to(dev) for _ in range(2))
+    A, B = htt.array(a, split=0, comm=comm1), htt.array(b, comm=comm1)
+    prod = (A @ B).larray
+    check(bool(torch.equal(prod, (a.double() @ b.double()).to(torch.int64))), "int64 matmul != exact product")
+    metrics["int_matmul_2048_ms"] = wall_ms(lambda: A @ B, reps=3)
+    metrics["int_matmul_2048_device_ms"] = device_ms(lambda: A @ B, [()], per_graph=1, trials=3)
+    print(f"int64 2048^3 matmul: exact, {metrics['int_matmul_2048_ms']:.1f} ms "
+          f"({metrics['int_matmul_2048_device_ms']:.1f} ms of device time)")
     return launches, metrics
 
 
@@ -1194,6 +1647,13 @@ def run(dev, out_path=None) -> int:
     for row in kernel_rows:
         row["launches_by_phase"] = {"4": row["launches"], "7": lasso_launches[row["name"]]}
         row["launches"] += lasso_launches[row["name"]]
+    # ---------------------------------------------------------------- 8
+    rng_metrics = phase_rng(torch, htt, dev)
+    kc_metrics = phase_kclusterers(torch, htt, dev, data, centers)
+    nb_launches, est_metrics = phase_spectral_nb_knn(torch, htt, cq, dev, data, counted)
+    for row in kernel_rows:
+        row["launches_by_phase"]["8"] = nb_launches[row["name"]]
+        row["launches"] += nb_launches[row["name"]]
     kernel_rows += attn_rows
 
     metrics = {
@@ -1206,6 +1666,9 @@ def run(dev, out_path=None) -> int:
         **attn_metrics,
         **path_metrics,
         **linalg_metrics,
+        **rng_metrics,
+        **kc_metrics,
+        **est_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

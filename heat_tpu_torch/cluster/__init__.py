@@ -1,5 +1,8 @@
 """Clustering estimators."""
 
 from .kmeans import KMeans
+from .kmedians import KMedians
+from .kmedoids import KMedoids
+from .spectral import Spectral
 
-__all__ = ["KMeans"]
+__all__ = ["KMeans", "KMedians", "KMedoids", "Spectral"]

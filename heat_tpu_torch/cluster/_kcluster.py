@@ -1,20 +1,20 @@
 """Shared engine of the k-clustering estimators.
 
-Port of ``heat_tpu/cluster/_kcluster.py``: centroid initialization from a
-DNDarray of centroids, nearest-centroid assignment through the distance
-metric, and the fit/predict skeleton.  ``init="random"`` and
-``init="probability_based"`` draw from the reference's threefry streams,
-which the port does not have yet (ROADMAP queue A, item 5: the RNG port
-of ``core/random.py``); they raise ``NotImplementedError``.
+Port of ``heat_tpu/cluster/_kcluster.py``: centroid initialization (a
+DNDarray of centroids, ``"random"`` rows or k-means++
+``"probability_based"`` draws from the threefry streams of
+:mod:`heat_tpu_torch.core.random`), nearest-centroid assignment through
+the distance metric, and the fit/predict skeleton.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
-from ..core import types
+from ..core import factories, random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_predict_in
@@ -29,8 +29,28 @@ def _quadratic_cdist(x: DNDarray, y: DNDarray) -> DNDarray:
     return distance.cdist(x, y, quadratic_expansion=True)
 
 
+def _kmeanspp(arr: torch.Tensor, first: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+    """The k-means++ draws on the device, with no host sync: center 0 is
+    row ``first``; each next one folds the newest center into the running
+    min-distance vector and takes the row where ``us[i]`` times the total
+    falls in the float32 cumulative sum of the squared distances (the
+    reference's d^2 CDF, searched on its left side)."""
+    n, k = arr.shape[0], us.shape[0]
+    centers = torch.zeros((k, arr.shape[1]), dtype=arr.dtype, device=arr.device)
+    centers[0] = arr[first]
+    dmin = torch.full((n,), float("inf"), dtype=arr.dtype, device=arr.device)
+    for i in range(1, k):
+        dmin = torch.minimum(dmin, torch.sum((arr - centers[i - 1]) ** 2, dim=1))
+        cdf = torch.cumsum(dmin, dim=0)
+        total = cdf[-1]
+        draw = us[i] * torch.where(total > 0, total, torch.ones_like(total))
+        idx = torch.clamp(torch.searchsorted(cdf, draw.reshape(1)), 0, n - 1)
+        centers[i] = arr[idx[0]]
+    return centers
+
+
 class _KCluster(ClusteringMixin, BaseEstimator):
-    """Base class of KMeans.
+    """Base class of KMeans, KMedians and KMedoids.
 
     Parameters
     ----------
@@ -62,6 +82,21 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         self._inertia = None
         self._n_iter = None
 
+    @classmethod
+    def from_fitted(cls, state: dict, device=None, comm=None):
+        """A fitted estimator from numpy state — ``{"cluster_centers":
+        (k, f) array, "n_iter": int, "inertia": float}`` (the last two
+        optional), e.g. read off an estimator of the same name fitted by
+        the JAX package — ready to ``predict``."""
+        centers = factories.array(
+            np.asarray(state["cluster_centers"]), split=None, device=device, comm=comm
+        )
+        est = cls(n_clusters=int(centers.shape[0]), init=centers)
+        est._cluster_centers = centers
+        est._n_iter = None if state.get("n_iter") is None else int(state["n_iter"])
+        est._inertia = None if state.get("inertia") is None else float(state["inertia"])
+        return est
+
     @property
     def cluster_centers_(self) -> DNDarray:
         return self._cluster_centers
@@ -84,19 +119,31 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         return self._n_iter
 
     def _initialize_cluster_centers(self, x: DNDarray) -> None:
-        """Initial centroids: a DNDarray of centroids, replicated."""
+        """Initial centroids, replicated: the given DNDarray, ``k`` rows at
+        the first ``k`` places of ``randperm(n)`` (``"random"``), or the
+        k-means++ draws (``"probability_based"``: the first row from
+        ``randint``, then ``rand(k)`` against the d^2 CDF).  An int
+        ``random_state`` reseeds the generator first."""
+        if self.random_state is not None:
+            random.seed(self.random_state)
         if isinstance(self.init, DNDarray):
             if self.init.shape != (self.n_clusters, x.shape[1]):
                 raise ValueError("passed centroids do not match cluster count or data shape")
             self._cluster_centers = self.init.resplit(None)
             return
-        if self.init in ("random", "probability_based"):
-            raise NotImplementedError(
-                f"init={self.init!r} needs the threefry RNG port of core/random.py "
-                "(ROADMAP queue A, item 5); pass a DNDarray of initial centroids"
+        if self.init == "random":
+            idx = random.randperm(x.shape[0], device=x.device, comm=x.comm).larray[: self.n_clusters]
+            centers = x.larray[idx]
+        elif self.init == "probability_based":
+            first = random.randint(0, x.shape[0], (1,), device=x.device, comm=x.comm).larray[0]
+            us = random.rand(self.n_clusters, device=x.device, comm=x.comm).larray
+            centers = _kmeanspp(x.larray.to(torch.float32), first, us).to(x.larray.dtype)
+        else:
+            raise ValueError(
+                f"init needs to be one of 'random', DNDarray or 'probability_based', got {self.init}"
             )
-        raise ValueError(
-            f"init needs to be one of 'random', DNDarray or 'probability_based', got {self.init}"
+        self._cluster_centers = DNDarray(
+            centers, (self.n_clusters, x.shape[1]), x.dtype, None, x.device, x.comm
         )
 
     def _assign_to_cluster(self, x: DNDarray) -> DNDarray:

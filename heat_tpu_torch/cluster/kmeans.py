@@ -22,7 +22,6 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..core import factories
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
 from ._kcluster import _KCluster, _quadratic_cdist
@@ -47,8 +46,8 @@ class KMeans(_KCluster):
     Parameters
     ----------
     n_clusters : int
-    init : DNDarray of initial centroids (``'random'`` and
-        ``'probability_based'`` await the RNG port)
+    init : ``'random'`` | ``'probability_based'`` (k-means++, also
+        ``'kmeans++'``) | DNDarray of initial centroids
     max_iter : int
     tol : float — convergence threshold on the squared centroid shift
     random_state : int or None
@@ -72,20 +71,6 @@ class KMeans(_KCluster):
             tol=tol,
             random_state=random_state,
         )
-
-    @classmethod
-    def from_fitted(cls, state: dict, device=None, comm=None) -> "KMeans":
-        """A fitted estimator from numpy state — ``{"cluster_centers":
-        (k, f) array, "n_iter": int, "inertia": float}``, e.g. read off a
-        KMeans fitted by the JAX package — ready to ``predict``."""
-        centers = factories.array(
-            np.asarray(state["cluster_centers"]), split=None, device=device, comm=comm
-        )
-        km = cls(n_clusters=int(centers.shape[0]), init=centers)
-        km._cluster_centers = centers
-        km._n_iter = None if state.get("n_iter") is None else int(state["n_iter"])
-        km._inertia = None if state.get("inertia") is None else float(state["inertia"])
-        return km
 
     @staticmethod
     def _fit_segment(arr: torch.Tensor, tol: float, stop: int, carry):

@@ -90,12 +90,14 @@ def __binary_op(
         raise TypeError(f"expected a DNDarray or scalar, got {type(t1)}")
     if not isinstance(anchor, DNDarray):
         raise TypeError(f"expected a DNDarray or scalar, got {type(anchor)}")
-    for t in (t1, t2):
-        if not (np.isscalar(t) or isinstance(t, DNDarray)):
-            raise TypeError(f"expected a DNDarray or scalar, got {type(t)}")
 
     a1 = t1 if scalar_1 else t1.larray
-    a2 = t2 if scalar_2 else t2.larray
+    if scalar_2:
+        a2 = t2
+    elif isinstance(t2, DNDarray):
+        a2 = t2.larray
+    else:  # host data (a numpy array, a list) as the right operand
+        a2 = torch.as_tensor(np.asarray(t2), device=a1.device)
     if scalar_1:
         result = operation(torch.as_tensor(t1, dtype=torch.result_type(a2, t1), device=a2.device), a2, **fn_kwargs)
     else:

@@ -1,5 +1,6 @@
-"""sklearn-style estimator API: ``BaseEstimator``, ``ClusteringMixin``,
-``RegressionMixin`` and ``is_regressor``.
+"""sklearn-style estimator API: ``BaseEstimator``, ``ClassificationMixin``,
+``ClusteringMixin``, ``RegressionMixin``, ``is_classifier`` and
+``is_regressor``.
 
 Port of ``heat_tpu/core/base.py`` without its telemetry span wrapping.
 """
@@ -9,7 +10,14 @@ from __future__ import annotations
 import inspect
 from typing import Any, Dict
 
-__all__ = ["BaseEstimator", "ClusteringMixin", "RegressionMixin", "is_regressor"]
+__all__ = [
+    "BaseEstimator",
+    "ClassificationMixin",
+    "ClusteringMixin",
+    "RegressionMixin",
+    "is_classifier",
+    "is_regressor",
+]
 
 
 class BaseEstimator:
@@ -62,6 +70,23 @@ class BaseEstimator:
         return f"{self.__class__.__name__}({params})"[:N_CHAR_MAX]
 
 
+class ClassificationMixin:
+    """Mixin for classification estimators."""
+
+    _estimator_type = "classifier"
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        """Fit, then return the predicted classes of ``x``."""
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
+
+
 class ClusteringMixin:
     """Mixin for clustering estimators."""
 
@@ -94,6 +119,11 @@ class RegressionMixin:
 
     def predict(self, x):
         raise NotImplementedError()
+
+
+def is_classifier(obj) -> bool:
+    """True for a classification estimator."""
+    return getattr(obj, "_estimator_type", None) == "classifier"
 
 
 def is_regressor(obj) -> bool:

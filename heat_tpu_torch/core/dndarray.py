@@ -160,10 +160,19 @@ class DNDarray:
             t = t.float()
         return t.cpu().numpy()
 
+    def __array__(self, dtype=None, copy=None):
+        """The global array on the host, for numpy (a numpy operand on the
+        left of a comparison computes through this, as in the reference)."""
+        arr = self.numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
     def item(self):
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
         return self.larray.reshape(()).item()
+
+    def __bool__(self) -> bool:
+        return bool(self.item())
 
     def __float__(self) -> float:
         return float(self.item())
@@ -190,21 +199,22 @@ class DNDarray:
 
     def __getitem__(self, key) -> "DNDarray":
         """Basic indexing with global semantics: integers, slices (any
-        step), ``Ellipsis`` and ``None``.  A slice keeps the split on its
-        axis; an integer that consumes the split axis hands it to the
-        nearest remaining axis; a 0-d result is replicated.  Array keys
-        need the ring gather of ``parallel/take.py`` (not ported yet)."""
+        step), ``Ellipsis``, ``None`` and scalar bools (which insert an
+        axis of length 1 for True, 0 for False, as ``None`` inserts one).
+        A slice keeps the split on its axis; an integer that consumes the
+        split axis hands it to the nearest remaining axis; a 0-d result is
+        replicated.  Array keys need the ring gather of
+        ``parallel/take.py`` (not ported yet)."""
         keyt = key if isinstance(key, tuple) else (key,)
         for k in keyt:
-            if not (k is None or k is Ellipsis or isinstance(k, slice) or (
-                isinstance(k, (int, np.integer)) and not isinstance(k, (bool, np.bool_))
-            )):
+            if not (k is None or k is Ellipsis or isinstance(k, (slice, int, np.integer, np.bool_))):
                 raise NotImplementedError(
                     f"DNDarray indexing with {type(k).__name__} keys needs the ring gather "
                     "of parallel/take.py (ROADMAP queue A, item 6); integers, slices, "
-                    "Ellipsis and None are supported"
+                    "Ellipsis, None and scalar bools are supported"
                 )
-        used = sum(1 for k in keyt if k is not None and k is not Ellipsis)
+        inserts = lambda k: k is None or isinstance(k, (bool, np.bool_))  # noqa: E731
+        used = sum(1 for k in keyt if not inserts(k) and k is not Ellipsis)
         if used > self.ndim:
             raise IndexError(
                 f"too many indices for array: array is {self.ndim}-dimensional, but {used} were indexed"
@@ -220,8 +230,10 @@ class DNDarray:
 
         arr, out_axis, in_axis, split = self.larray, 0, 0, None
         for k in expanded:
-            if k is None:
+            if inserts(k):
                 arr = arr.unsqueeze(out_axis)
+                if k is not None and not k:
+                    arr = arr.narrow(out_axis, 0, 0)
                 out_axis += 1
                 continue
             if in_axis == self.__split:
@@ -320,6 +332,38 @@ class DNDarray:
         from . import arithmetics
 
         return arithmetics.neg(self)
+
+    def __eq__(self, other):
+        from . import relational
+
+        return relational.eq(self, other)
+
+    def __ne__(self, other):
+        from . import relational
+
+        return relational.ne(self, other)
+
+    def __lt__(self, other):
+        from . import relational
+
+        return relational.lt(self, other)
+
+    def __le__(self, other):
+        from . import relational
+
+        return relational.le(self, other)
+
+    def __gt__(self, other):
+        from . import relational
+
+        return relational.gt(self, other)
+
+    def __ge__(self, other):
+        from . import relational
+
+        return relational.ge(self, other)
+
+    __hash__ = None  # elementwise ==, as the reference
 
     def sum(self, axis=None, out=None, keepdims=None):
         from . import arithmetics

@@ -19,6 +19,7 @@ call and restored after it: ``'highest'`` (the default) keeps TF32 off,
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import List, Optional
 
 import torch
@@ -75,14 +76,33 @@ def _matmul_precision(precision: Optional[str] = None):
         torch.set_float32_matmul_precision(prev)
 
 
+#: bytes of the transients of an integer or bool product's k-chunk: the
+#: (..., m, kc, n) broadcast buffer and its (..., m, n) sum.  cuBLAS has
+#: no integer GEMM, so such a product is summed chunk by chunk over k;
+#: 256 MiB keeps a 2048^3 int64 product (a 68.7 GB buffer unchunked) to
+#: eight k-columns a chunk.
+INT_MATMUL_BUDGET = 1 << 28
+
+
 def _mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``torch.matmul``; integer and bool operands, which cuBLAS has no
-    product for, multiply exactly by a broadcast product summed over k."""
+    """``torch.matmul``; integer and bool operands (of one dtype), which
+    cuBLAS has no product for, multiply exactly by broadcast products
+    summed over k in chunks whose transients stay under
+    :data:`INT_MATMUL_BUDGET`.  Integer sums wrap as the reference's
+    integer dot does."""
     if x.is_floating_point():
         return torch.matmul(x, y)
     x2 = x.unsqueeze(0) if x.ndim == 1 else x
     y2 = y.unsqueeze(-1) if y.ndim == 1 else y
-    out = (x2.unsqueeze(-1) * y2.unsqueeze(-3)).sum(-2).to(x.dtype)
+    k = int(x2.shape[-1])
+    outer = torch.broadcast_shapes(x2.shape[:-2], y2.shape[:-2]) + (x2.shape[-2], y2.shape[-1])
+    cells = max(1, math.prod(outer))
+    kc = max(1, (INT_MATMUL_BUDGET - 8 * cells) // (x.element_size() * cells))
+    acc = torch.zeros(outer, dtype=torch.int64, device=x.device)
+    for c0 in range(0, k, kc):
+        xs, ys = x2[..., c0:c0 + kc], y2[..., c0:c0 + kc, :]
+        acc += (xs.unsqueeze(-1) * ys.unsqueeze(-3)).sum(-2, dtype=torch.int64)
+    out = acc.to(x.dtype)
     if y.ndim == 1:
         out = out.squeeze(-1)
     if x.ndim == 1:

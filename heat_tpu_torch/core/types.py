@@ -1,13 +1,14 @@
 """The heat dtype lattice, on torch dtypes.
 
 Port of the part of ``heat_tpu/core/types.py`` the analytics path touches:
-the type classes ``bool``, ``int32``, ``int64``, ``float32``, ``float64``,
-``bfloat16`` and ``float16`` under the ``generic`` hierarchy, plus
-:func:`canonical_heat_type`, :func:`heat_type_is_exact` and
-:func:`promote_types`.  Promotion is torch's, which agrees with the
-reference's lattice on every pair of these seven types (int + float32 ->
-float32, int + bfloat16 -> bfloat16, bfloat16 + float32 -> float32,
-float16 + float32 -> float32).
+the type classes ``bool``, ``uint8``, ``int8``, ``int16``, ``int32``,
+``int64``, ``float32``, ``float64``, ``bfloat16`` and ``float16`` under the
+``generic`` hierarchy, plus :func:`canonical_heat_type`,
+:func:`heat_type_is_exact` and :func:`promote_types`.  Promotion is
+torch's, which agrees with the reference's lattice on every pair of these
+ten types (uint8 + int8 -> int16, int + float32 -> float32, int +
+bfloat16 -> bfloat16, bfloat16 + float32 -> float32, float16 + float32 ->
+float32).
 """
 
 from __future__ import annotations
@@ -23,8 +24,12 @@ __all__ = [
     "number",
     "integer",
     "signedinteger",
+    "unsignedinteger",
     "floating",
     "bool",
+    "uint8",
+    "int8",
+    "int16",
     "int32",
     "int64",
     "float32",
@@ -65,6 +70,22 @@ class signedinteger(integer):
     pass
 
 
+class unsignedinteger(integer):
+    pass
+
+
+class uint8(unsignedinteger):
+    _torch_type = torch.uint8
+
+
+class int8(signedinteger):
+    _torch_type = torch.int8
+
+
+class int16(signedinteger):
+    _torch_type = torch.int16
+
+
 class int32(signedinteger):
     _torch_type = torch.int32
 
@@ -93,11 +114,12 @@ class float16(floating):
     _torch_type = torch.float16
 
 
-_CONCRETE = (bool, int32, int64, float32, float64, bfloat16, float16)
+_CONCRETE = (bool, uint8, int8, int16, int32, int64, float32, float64, bfloat16, float16)
 _BY_TORCH = {t._torch_type: t for t in _CONCRETE}
 _BY_NAME = {t.__name__: t for t in _CONCRETE}
 _BY_NAME.update({
-    "bool_": bool, "b": bool, "int": int32, "i4": int32, "long": int64,
+    "bool_": bool, "b": bool, "ubyte": uint8, "u1": uint8, "byte": int8, "i1": int8,
+    "short": int16, "i2": int16, "int": int32, "i4": int32, "long": int64,
     "i8": int64, "float": float32, "f4": float32, "double": float64, "f8": float64,
     "half": float16, "f2": float16,
 })

@@ -3,11 +3,17 @@
 The system runs no model, so what crosses over is the global data and the
 fitted estimator state, both as numpy arrays: :func:`array_from_numpy`
 takes the global array the JAX package's ``DNDarray.numpy()`` (or
-``numpy.asarray`` of a jax array) returns,
-:meth:`heat_tpu_torch.cluster.KMeans.from_fitted` takes a fitted KMeans's
-centers, iteration count and inertia, and
-:meth:`heat_tpu_torch.regression.Lasso.from_fitted` a fitted Lasso's theta
-(intercept first) and iteration count.
+``numpy.asarray`` of a jax array) returns, and each estimator's
+``from_fitted`` takes its fitted state:
+
+* ``KMeans``, ``KMedians``, ``KMedoids``: the centers, the iteration
+  count and (KMeans) the inertia;
+* ``Spectral``: the embedding dimension and its inner KMeans's centers,
+  beside the constructor's parameters;
+* ``GaussianNB``: ``theta_``, ``sigma_``, ``class_prior_``,
+  ``class_count_`` and ``classes_``;
+* ``KNN``: its training rows and labels and ``num_neighbours``;
+* ``Lasso``: theta (intercept first) and the iteration count.
 
 numpy has no bfloat16: a JAX bfloat16 array leaves as an
 ``ml_dtypes.bfloat16`` array.  :func:`tensor_from_numpy` carries its bits

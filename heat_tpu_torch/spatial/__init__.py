@@ -1,5 +1,5 @@
 """Spatial functions: pairwise distances."""
 
-from .distance import cdist, quadratic_d2
+from .distance import cdist, manhattan, quadratic_d2, rbf
 
-__all__ = ["cdist", "quadratic_d2"]
+__all__ = ["cdist", "manhattan", "quadratic_d2", "rbf"]

@@ -1,9 +1,10 @@
-"""Pairwise distances: :func:`cdist` and its quadratic-expansion core.
+"""Pairwise distances: :func:`cdist`, :func:`rbf`, :func:`manhattan` and
+the quadratic-expansion core.
 
-Port of ``quadratic_d2`` and ``cdist`` from ``heat_tpu/spatial/distance.py``.
-The expansion ``|x|^2 + |y|^2 - 2 x.y`` turns the distance matrix into one
-float32 matrix product (cuBLAS, TF32 off); the exact form takes the
-direct differences.  Row-split ``X`` gives a row-split result.
+Port of ``heat_tpu/spatial/distance.py``.  The expansion ``|x|^2 + |y|^2
+- 2 x.y`` turns the distance matrix into one float32 matrix product
+(cuBLAS, TF32 off); the exact form takes the direct differences.
+Row-split ``X`` gives a row-split result.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ..core import types
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
 
-__all__ = ["cdist", "quadratic_d2"]
+__all__ = ["cdist", "manhattan", "quadratic_d2", "rbf"]
 
 
 def quadratic_d2(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
@@ -45,6 +46,11 @@ def _prep(x: DNDarray, y: Optional[DNDarray]):
     return xa, ya, promoted
 
 
+def _wrap(X: DNDarray, d: torch.Tensor, dtype) -> DNDarray:
+    split = X.split if X.split == 0 else None
+    return DNDarray(d, tuple(d.shape), dtype, split, X.device, X.comm)
+
+
 def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
     """Pairwise euclidean distances between the rows of ``X`` and ``Y``
     (``Y = X`` when omitted)."""
@@ -53,5 +59,29 @@ def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool =
         d = torch.sqrt(quadratic_d2(xa, ya))
     else:
         d = torch.cdist(xa, ya, compute_mode="donot_use_mm_for_euclid_dist")
-    split = X.split if X.split == 0 else None
-    return DNDarray(d, tuple(d.shape), dtype, split, X.device, X.comm)
+    return _wrap(X, d, dtype)
+
+
+def rbf(
+    X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic_expansion: bool = False
+) -> DNDarray:
+    """The Gaussian kernel matrix ``exp(-d^2 / (2 sigma^2))`` of the rows
+    of ``X`` and ``Y`` (``Y = X`` when omitted); ``2 sigma^2`` is taken in
+    the operands' type, as the reference takes it."""
+    xa, ya, dtype = _prep(X, Y)
+    if quadratic_expansion:
+        d2 = quadratic_d2(xa, ya)
+    else:
+        diff = xa[:, None, :] - ya[None, :, :]
+        d2 = torch.sum(diff * diff, dim=-1)
+    sig = torch.tensor(sigma, dtype=xa.dtype)
+    return _wrap(X, torch.exp(-d2 / (2.0 * sig * sig).item()), dtype)
+
+
+def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False) -> DNDarray:
+    """Pairwise L1 distances of the rows of ``X`` and ``Y`` (``Y = X`` when
+    omitted); ``expand`` is accepted as the reference accepts it, with one
+    formulation behind it."""
+    xa, ya, dtype = _prep(X, Y)
+    del expand
+    return _wrap(X, torch.cdist(xa, ya, p=1.0), dtype)

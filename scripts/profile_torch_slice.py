@@ -16,12 +16,17 @@ positions; then one ``qr`` + ``svd`` of the tall-skinny 131 072 x 64
 float32 matrix at one and at four positions, one Lasso coordinate-descent
 sweep at one position (a fit with ``max_iter=1``, its set-up included), and
 Lasso ISTA fits of 1 and 11 steps at four positions under ``int8_block``
-(their difference is ten steps, without the step-size power iteration).
-For each it prints the wall time, the summed
+(their difference is ten steps, without the step-size power iteration);
+then the RNG's ``randperm(500000)``, a 300-step ``lanczos`` on the
+20 000-row Spectral Laplacian and the whole ``Spectral.fit`` around it
+(rbf, gamma 1e-3, 8 clusters), a 30-step ``KMedians.fit`` on the blobs at
+one position, and GaussianNB fits on the blobs, exact at one position and
+at four positions under ``int8_block``.  For each it prints the wall time, the summed
 device time of the kernels and their share of the wall time (the device's
 busy share), the host's waits on the device (synchronize calls of the
 CUDA runtime, and reads of a device scalar such as ``bool(t)``), and the
-kernels that take the most device time.
+kernels that take the most device time, and the count of device
+activities (kernel launches, copies, memsets).
 """
 
 from __future__ import annotations
@@ -74,10 +79,11 @@ def profile(torch, label: str, fn, top: int = 8) -> dict:
         "busy_share": device_us / wall_us if wall_us else None,
         "sync_calls": syncs,
         "scalar_reads": reads,
+        "launches": sum(k[2] for k in kernels),
         "top": [{"name": n[:90], "device_us": d, "calls": c} for n, d, c in kernels[:top]],
     }
     print(f"{label}: wall {wall_us:.0f} us, device {device_us:.0f} us, busy {row['busy_share']:.3f}, "
-          f"{syncs} synchronize calls, {reads} scalar reads")
+          f"{syncs} synchronize calls, {reads} scalar reads, {row['launches']} device activities")
     for k in row["top"]:
         print(f"    {k['device_us']:10.1f} us  {k['calls']:5d}x  {k['name']}")
     return row
@@ -149,6 +155,31 @@ def main() -> int:
                 torch, f"lasso gd int8_block, {steps} step(s), 4 positions",
                 lambda: lasso(lam=cs.LASSO_LAM, max_iter=steps, tol=-1.0, solver="gd").fit(X4, Y4),
                 top=12))
+    rows.append(profile(torch, f"randperm({cs.N}), 1 position",
+                        lambda: htt.random.randperm(cs.N, comm=comm1)))
+    sub = htt.array(data[:: cs.N // cs.SUB], split=0, comm=comm1)
+    spectral = lambda: htt.cluster.Spectral(  # noqa: E731
+        n_clusters=cs.K, gamma=cs.SPECTRAL_GAMMA, metric="rbf", n_lanczos=cs.SPECTRAL_M)
+    L = spectral()._laplacian.construct(sub)
+    v0 = htt.full((cs.SUB,), 1.0 / np.sqrt(cs.SUB), dtype=htt.float32, comm=comm1)
+    row = profile(torch, f"lanczos {cs.SPECTRAL_M} steps, {cs.SUB}^2 Laplacian, 1 position",
+                  lambda: htt.linalg.lanczos(L, cs.SPECTRAL_M, v0=v0), top=10)
+    steps = cs.SPECTRAL_M - 1
+    print(f"    per step: {row['launches'] / steps:.1f} device activities, "
+          f"{row['sync_calls'] / steps:.2f} synchronize calls, {row['scalar_reads'] / steps:.2f} scalar reads")
+    rows.append(row)
+    del L
+    rows.append(profile(torch, f"Spectral.fit {cs.SUB} rows, 1 position", lambda: spectral().fit(sub), top=10))
+    rows.append(profile(torch, f"KMedians.fit {cs.MED_STEPS} steps, 1 position",
+                        lambda: htt.cluster.KMedians(n_clusters=cs.K, init=init1, max_iter=cs.MED_STEPS,
+                                                     tol=-1.0).fit(X1), top=10))
+    truth = np.repeat(np.arange(cs.K), cs.N // cs.K)
+    y1, y4 = htt.array(truth, split=0, comm=comm1), htt.array(truth, split=0, comm=comm4)
+    rows.append(profile(torch, "GaussianNB fit exact, 1 position",
+                        lambda: htt.naive_bayes.GaussianNB().fit(X1, y1), top=10))
+    with cq.collective_precision("int8_block"):
+        rows.append(profile(torch, "GaussianNB fit int8_block, 4 positions",
+                            lambda: htt.naive_bayes.GaussianNB().fit(X4, y4), top=10))
     card = cs.card_line()
     print(card)
     if args.out:

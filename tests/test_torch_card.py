@@ -37,6 +37,13 @@ one (S within 1e-5 of the largest singular value), Lasso cd and gd against a flo
 kernel launches of a quantized ISTA step (2 quantize, 3 hops, 1
 dequantize_fma, 1 dequantize at 4 positions).  ``allclose`` and ``equal``
 of a card array and host data compare on the card.
+
+The RNG draws on the card equal the port's CPU draws of the same seed and
+counter bit for bit at 1 and 4 positions (``randn``: within 4 ulps, the
+card's ``log1p`` not being the CPU's); the comparison operators give card
+arrays; KMedians' bisection at 2^17 rows equals ``numpy.median``; an
+int64 2048^3 product equals the exact one with its transients under
+``INT_MATMUL_BUDGET``.
 """
 
 import importlib
@@ -439,3 +446,104 @@ def test_comparisons_with_host_data_run_on_card(cuda_device, monkeypatch):
     assert htt.allclose(c, x) and htt.allclose(x, c) and not htt.allclose(x, c + 1)
     assert htt.equal(c, x) and htt.equal(x, c) and not htt.equal(x, c + 1)
     assert len(seen) == 6 and all(s == {"cuda"} for s in seen)
+
+
+# --------------------------------------------------------------------- #
+# the RNG, the comparison operators, KMedians, integer products          #
+# --------------------------------------------------------------------- #
+RNG_DRAWS = [
+    ("rand", (513, 7), {}), ("rand", (300,), {"dtype": "float64"}), ("rand", (257,), {"dtype": "float16"}),
+    ("rand", (257,), {"dtype": "bfloat16"}), ("randint", (-9, 10**6, (1000,)), {}),
+    ("randint", (-3, 2**62, (100,)), {"dtype": "int64"}), ("randint", (0, 200, (99,)), {"dtype": "uint8"}),
+    ("randperm", (1 << 17,), {}), ("permutation", (1000,), {}), ("randn", (64, 9), {"dtype": "float16"}),
+]
+
+
+def _draw(fn, args, kw, comm):
+    kw = {k: getattr(htt, v) if k == "dtype" else v for k, v in kw.items()}
+    htt.random.set_state(("Threefry", 31, 4))
+    out = getattr(htt.random, fn)(*args, split=0, comm=comm, **kw)
+    return out, htt.random.get_state()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("fn,args,kw", RNG_DRAWS, ids=lambda v: str(v)[:24])
+def test_rng_on_card_bitwise_against_cpu(cuda_device, p, fn, args, kw):
+    got, st_card = _draw(fn, args, kw, htt.TorchCommunication([cuda_device] * p))
+    want, st_cpu = _draw(fn, args, kw, htt.TorchCommunication(["cpu"] * p))
+    assert got.larray.device.type == "cuda" and st_card == st_cpu
+    a, b = got.larray.cpu(), want.larray
+    if a.is_floating_point():
+        a, b = a.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]), \
+            b.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[b.element_size()])
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,ulps", [("float32", 4), ("float64", 64)])
+def test_randn_on_card_within_ulps_of_cpu(cuda_device, dtype, ulps):
+    got, _ = _draw("randn", (4096, 33), {"dtype": dtype}, htt.TorchCommunication([cuda_device]))
+    want, _ = _draw("randn", (4096, 33), {"dtype": dtype}, htt.TorchCommunication(["cpu"]))
+    g, w = got.numpy(), want.numpy()
+    assert float((np.abs(g.astype(np.float64) - w) / np.spacing(np.abs(w))).max()) <= ulps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_comparison_operators_on_card(cuda_device, split):
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    a = np.random.default_rng(26).integers(-3, 4, size=(13, 6)).astype(np.float32)
+    x, y = htt.array(a, split=split, comm=comm), htt.array(a.T.copy().T, split=split, comm=comm)
+    for got, want in ((x == y, a == a), (x != 1, a != 1), (x < 0, a < 0), (x <= a, a <= a),
+                      (2 > x, 2 > a), (x >= y, a >= a)):
+        assert got.larray.device.type == "cuda" and got.split == split and got.dtype is htt.bool
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert bool(x[0, 0] == float(a[0, 0])) and x[True].shape == (1, 13, 6)
+
+
+@pytest.mark.gpu
+def test_kmedians_bisection_at_2_17_rows_on_card(cuda_device):
+    """The exact medians of 2^17 rows (presorted columns, warm brackets
+    from the second step) equal numpy's median of each cluster's rows
+    under the same labels."""
+    from heat_tpu_torch.cluster.kmeans import _assign
+    from heat_tpu_torch.cluster.kmedians import KMedians
+
+    n, f, k = 1 << 17, 8, 6
+    rng = np.random.default_rng(27)
+    centers = rng.normal(scale=4, size=(k, f)).astype(np.float32)
+    data = (centers[rng.integers(0, k, n)] + rng.normal(size=(n, f))).astype(np.float32)
+    arr = torch.from_numpy(data).to(cuda_device)
+    c = torch.from_numpy(centers).to(cuda_device)
+    for _ in range(3):
+        got, labels, _ = KMedians._fit_loop(arr, c, -1.0, 1)
+        lab = _assign(arr, c).cpu().numpy()
+        want = np.stack([np.median(data[lab == j], axis=0) for j in range(k)]).astype(np.float32)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        c = got
+
+
+@pytest.mark.gpu
+def test_int64_matmul_2048_on_card_under_budget(cuda_device):
+    """int64 2048 x 2048 @ 2048 x 2048 equals the exact product (values
+    small enough that float64 holds every sum exactly on the host), and
+    the product's memory beyond its operands stays under
+    ``INT_MATMUL_BUDGET`` plus the output."""
+    from heat_tpu_torch.core.linalg import basics
+
+    n = 2048
+    rng = np.random.default_rng(28)
+    a, b = rng.integers(-1000, 1000, size=(n, n)), rng.integers(-1000, 1000, size=(n, n))
+    comm = htt.TorchCommunication([cuda_device])
+    x, y = htt.array(a, split=0, comm=comm), htt.array(b, comm=comm)
+    assert x.dtype is htt.int64
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    z = x @ y
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= basics.INT_MATMUL_BUDGET + n * n * 8, extra
+    want = (a.astype(np.float64) @ b.astype(np.float64)).astype(np.int64)
+    np.testing.assert_array_equal(z.numpy(), want)

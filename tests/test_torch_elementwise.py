@@ -11,6 +11,8 @@ vectorised ``exp``/``log``/``sin`` may differ in their last ulp); NaN where
 the reference has NaN.
 """
 
+import operator
+
 import numpy as np
 import pytest
 
@@ -140,3 +142,45 @@ def test_closeness_and_equal_match_reference(port):
     assert htt.allclose(htt.array(c, split=0), c) == ht.allclose(ht.array(c, split=0), c)
     for other in (c, c + 1, c[:5]):
         assert htt.equal(htt.array(c, split=0), htt.array(other)) == ht.equal(ht.array(c, split=0), ht.array(other))
+
+
+COMPARE = {"==": operator.eq, "!=": operator.ne, "<": operator.lt, "<=": operator.le,
+           ">": operator.gt, ">=": operator.ge}
+
+
+@pytest.mark.parametrize("op", sorted(COMPARE))
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_comparison_operators_match_reference(port, op, split):
+    """The six operator forms give the reference's bool DNDarrays (shape,
+    split, values) with a DNDarray, a number or a numpy array on the
+    other side; a numpy array on the left gives numpy's elementwise
+    result, as there."""
+    f = COMPARE[op]
+    a, b = np.round(_data("float32", seed=20)), np.round(_data("float32", seed=21))
+    xt, xj = htt.array(a, split=split), ht.array(a, split=split)
+    _same(f(xt, htt.array(b, split=split)), f(xj, ht.array(b, split=split)))
+    _same(f(xt, htt.array(b)), f(xj, ht.array(b)))
+    _same(f(xt, 2), f(xj, 2))
+    _same(f(2.0, xt), f(2.0, xj))
+    _same(f(xt, b), f(xj, b))
+    got, want = f(b, xt), f(b, xj)
+    assert isinstance(got, np.ndarray) and isinstance(want, np.ndarray)
+    np.testing.assert_array_equal(got.astype(bool), want.astype(bool))
+
+
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_truth_value_matches_reference(port, split):
+    """``bool`` of a one-element array is its value; of a larger one it
+    raises as the reference does; DNDarrays are unhashable there too."""
+    a = np.round(_data("float32", seed=22))
+    xt, xj = htt.array(a, split=split), ht.array(a, split=split)
+    for i in range(a.shape[0]):
+        assert bool(xt[i, 0] > 0) == bool(xj[i, 0] > 0)
+        assert bool(xt[i:i + 1, 2] <= 0) == bool(xj[i:i + 1, 2] <= 0)
+    with pytest.raises(ValueError):
+        bool(xj > 0)
+    with pytest.raises(ValueError):
+        bool(xt > 0)
+    with pytest.raises(TypeError):
+        hash(xt)
+    assert htt.all(xt == xt).item() and not htt.any(xt != xt).item()

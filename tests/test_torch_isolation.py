@@ -47,6 +47,10 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.regression.lasso", "heat_tpu_torch.core.exponential",
         "heat_tpu_torch.core.rounding", "heat_tpu_torch.core.relational",
         "heat_tpu_torch.core.logical", "heat_tpu_torch.core.trigonometrics",
+        "heat_tpu_torch.core.random", "heat_tpu_torch.graph.laplacian",
+        "heat_tpu_torch.cluster.spectral", "heat_tpu_torch.cluster.kmedians",
+        "heat_tpu_torch.cluster.kmedoids", "heat_tpu_torch.naive_bayes.gaussianNB",
+        "heat_tpu_torch.classification.knn",
     ]
     proc = _run(
         "import importlib, sys\n"

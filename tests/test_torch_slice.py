@@ -31,6 +31,7 @@ from heat_tpu.core.communication import XlaCommunication
 
 import torch
 
+import chip_smoke
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import compressed as tcq
 from heat_tpu_torch.core import communication as tcomm
@@ -393,10 +394,36 @@ def test_array_from_numpy_of_reference_global_array(port):
 
 
 @pytest.mark.parametrize("init", ["random", "probability_based", "kmeans++"])
-def test_kmeans_rng_inits_await_the_rng_port(port, init):
-    x = htt.array(_blobs(8, CENTERS), split=0)
-    with pytest.raises(NotImplementedError, match="RNG"):
-        htt.cluster.KMeans(n_clusters=3, init=init).fit(x)
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_kmeans_rng_inits_match_reference(port, init, split):
+    """The string inits draw the reference's rows from the same seed (the
+    initial centers bitwise), leave the generator in the reference's
+    state, and the default-init fit lands on the reference's centers.
+    k-means++ first asserts that no draw on this data lies within
+    ``chip_smoke.KPP_GAP`` of the total from a step of the float64 d^2
+    CDF, where two float32 cumsums could pick neighbouring rows."""
+    pts = _blobs(40, CENTERS, seed=7)
+    if init != "random":
+        htt.random.seed(11)
+        first = htt.random.randint(0, len(pts), (1,)).larray[0]
+        us = htt.random.rand(3).larray.numpy()
+        ht.random.seed(11)
+        kj = ht.cluster.KMeans(n_clusters=3, init=init)
+        kj._initialize_cluster_centers(ht.array(pts))
+        picks = chip_smoke.rows_of(pts, np.asarray(kj.cluster_centers_.numpy()))
+        near, gap = chip_smoke.kpp_check(pts.astype(np.float64), picks, us)
+        assert picks[0] == int(first) and near == 0 and gap > chip_smoke.KPP_GAP
+    kt = htt.cluster.KMeans(n_clusters=3, init=init, random_state=11)
+    kj = ht.cluster.KMeans(n_clusters=3, init=init, random_state=11)
+    kt._initialize_cluster_centers(htt.array(pts, split=split))
+    kj._initialize_cluster_centers(ht.array(pts, split=split))
+    np.testing.assert_array_equal(kt.cluster_centers_.numpy(), np.asarray(kj.cluster_centers_.numpy()))
+    assert htt.random.get_state() == ht.random.get_state()
+    kt.fit(htt.array(pts, split=split))
+    kj.fit(ht.array(pts, split=split))
+    np.testing.assert_allclose(
+        kt.cluster_centers_.numpy(), np.asarray(kj.cluster_centers_.numpy()), rtol=1e-5, atol=1e-5
+    )
 
 
 def test_kmeans_rejects_bad_init_shape(port):
