@@ -93,6 +93,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    positions (sigma_ within the ring bound; exactly 1 quantize, 3 hops,
    1 dequantize launched by the fit); KNN (k=5, 20 000 x 20 000) equal to
    a numpy replay off distance ties; an int64 2048^3 product, exact.
+9. the array API's foundation on the blobs at 1 and at FOUR positions:
+   ``cumsum`` along the split held to float64 numpy within ``gamma_k *
+   sum|x|`` (``gamma_k = k u / (1 - k u)``, ``u = 2^-24``, k the row's
+   count of terms), ``cumprod`` of ``1 + 1e-3 sin(100 x)`` (in [0.999, 1.001]) within
+   ``gamma_k * |prod|``; ``scan``/``exscan``/``reduce`` max, min and sum of
+   per-position partials, ``permute``, ``bcast``, ``scatter`` + ``gather``,
+   ``where``, ``nonzero`` and the count of ``x[:, 0] > 0``, ``__setitem__``
+   across position boundaries, ``diff`` along the split and halos of 2
+   rows, all bitwise numpy's; at FOUR positions ``gather`` (each value
+   within its block's absmax/254) and ``reduce`` (the ring bound of phase
+   4, bitwise the unfused ring) under ``int8_block``, their launches set
+   to 0 before and read after, exactly 2 quantize, 3 hops, 2 dequantize;
+   ``eye(20 000, split=0)``, ``linspace``/``logspace`` of 500 000 points
+   and ``str`` bitwise the port's CPU results; division by zero and
+   shifts past the width numpy's values.  Each operation prints its wall
+   time and the device time of one call (``torch.profiler``).
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -182,6 +198,10 @@ RITZ_TOL = 1e-4
 #: KMedians/KMedoids fits: the benchmark's steps (medians_medoids_rates)
 MED_STEPS = 30
 KNN_K = 5
+#: phase 9: float32's unit roundoff, the halo width, the identity's order
+U32 = 2.0 ** -24
+HALO = 2
+EYE_N = 20_000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1479,6 +1499,260 @@ def phase_spectral_nb_knn(torch, htt, cq, dev, data, counted):
     return launches, metrics
 
 
+# --------------------------------------------------------------------- #
+# the array API's foundation (phase 9)                                    #
+# --------------------------------------------------------------------- #
+def gamma(k):
+    """Higham's gamma_k = k u / (1 - k u) for float32 (u = 2^-24): the
+    bound on the relative error of any sum or product of k + 1 terms."""
+    k = np.asarray(k, dtype=np.float64)
+    return k * U32 / (1.0 - k * U32)
+
+
+def profiled_ms(torch, fn) -> float:
+    """Device time of one call of ``fn``: the device-side events of a
+    ``torch.profiler`` trace, summed (the aten ops that launched them
+    report the same time again and are left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or evt.key.startswith("Activity Buffer"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        total += float(us if us is not None else getattr(evt, "self_cuda_time_total", 0.0))
+    return total / 1e3
+
+
+def timed(torch, metrics: dict, key: str, fn):
+    """Record ``fn``'s wall time (median of 3, synchronised) and the
+    device time of one call under ``key``, print both, return ``fn()``."""
+    out = fn()
+    metrics[f"{key}_ms"] = wall_ms(fn, reps=3)
+    metrics[f"{key}_device_ms"] = profiled_ms(torch, fn)
+    print(f"  {key}: {metrics[f'{key}_ms']:.3f} ms wall, {metrics[f'{key}_device_ms']:.3f} ms of device time")
+    return out
+
+
+def exact(got, want, what: str) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    ok = got.shape == want.shape and got.dtype == want.dtype
+    if ok and got.dtype.kind == "f":  # bitwise, any NaN matching any NaN
+        nan = np.isnan(got)
+        ok = bool((nan == np.isnan(want)).all()) and bool(
+            (got.view(f"i{got.itemsize}") == want.view(f"i{want.itemsize}"))[~nan].all())
+    elif ok:
+        ok = bool((got == want).all())
+    check(ok, f"{what}: not bitwise numpy's ({got.shape} {got.dtype} vs {want.shape} {want.dtype})")
+
+
+def phase_array_api(torch, htt, cq, dev, data, counted):
+    """Phase 9: the array API's foundation on the blobs at 1 and
+    POSITIONS positions: cumsum/cumprod along the split held to float64
+    numpy under gamma_k bounds, scans over the positions, permute, bcast,
+    scatter, gather and reduce exact and (at POSITIONS) gather/reduce on
+    the int8 ring with exact launch counts, where/nonzero, setitem across
+    position boundaries, diff, halos, factories and the printed string
+    against the port's CPU, division by zero and shifts against numpy.
+    Returns the int8 launches and the metrics."""
+    metrics = {}
+    d64 = data.astype(np.float64)
+    rows = np.arange(1, N + 1, dtype=np.float64)[:, None]
+    launches = None
+    for p in (1, POSITIONS):
+        comm, cpu = htt.TorchCommunication([dev] * p), htt.TorchCommunication(["cpu"] * p)
+        print(f"phase 9 at {p} position(s):")
+        X = htt.array(data, split=0, comm=comm)
+        tag = f"p{p}"
+
+        # cumulative ops along the split axis: any order of k terms is
+        # within gamma_k of the exact prefix (float64 numpy's, whose own
+        # error is below k 2^-53)
+        cs = timed(torch, metrics, f"{tag}_cumsum", lambda: htt.cumsum(X, 0))
+        err = np.abs(cs.numpy().astype(np.float64) - np.cumsum(d64, 0))
+        bound = (gamma(rows) + rows * 2.0 ** -52) * np.cumsum(np.abs(d64), 0)
+        check(bool((err <= bound).all()), f"cumsum at {p}: outside gamma_k * sum|x|")
+        metrics[f"{tag}_cumsum_err_share_of_bound"] = float((err / np.maximum(bound, 1e-300)).max())
+        # factors in [0.999, 1.001] whose running product stays near 1
+        # (a random walk of 1e-3 steps): the blobs' own drift would
+        # overflow float32 over 500 000 rows
+        bounded = (1.0 + np.float32(1e-3) * np.sin(np.float32(100.0) * data)).astype(np.float32)
+        B = htt.array(bounded, split=0, comm=comm)
+        cp = timed(torch, metrics, f"{tag}_cumprod", lambda: htt.cumprod(B, 0))
+        want = np.cumprod(bounded.astype(np.float64), 0)
+        err = np.abs(cp.numpy().astype(np.float64) - want)
+        check(bool((err <= (gamma(rows) + rows * 2.0 ** -52) * np.abs(want)).all()),
+              f"cumprod at {p}: outside gamma_k * |prod|")
+        del cs, cp, B, err, bound, want
+
+        # scans and reductions over the positions, exact
+        blocks = comm.blocks(X._buffer, 0)
+        parts = {"max": blocks.amax(dim=1), "min": blocks.amin(dim=1), "sum": (blocks > 0).sum(dim=1)}
+        accumulate = {"max": np.maximum.accumulate, "min": np.minimum.accumulate, "sum": np.cumsum}
+        ident = {"max": np.finfo(np.float32).min, "min": np.finfo(np.float32).max, "sum": 0}
+        for op, part in parts.items():
+            host = part.cpu().numpy()
+            inc = accumulate[op](host, axis=0).astype(host.dtype)
+            exact(comm.scan(part, op).cpu().numpy(), inc, f"scan {op} at {p}")
+            exc = np.concatenate([np.full_like(inc[:1], ident[op]), inc[:-1]])
+            exact(comm.exscan(part, op).cpu().numpy(), exc, f"exscan {op} at {p}")
+            exact(comm.reduce(part, op).cpu().numpy(), inc[-1], f"reduce {op} at {p}")
+        timed(torch, metrics, f"{tag}_exscan_sum", lambda: comm.exscan(parts["sum"], "sum"))
+
+        # point-to-point and rooted collectives, exact
+        perm = [(i, p - 1 - i) for i in range(p)]
+        got = timed(torch, metrics, f"{tag}_permute", lambda: comm.permute(X._buffer, perm))
+        exact(got.cpu().numpy(), data.reshape(p, -1, F)[::-1].reshape(N, F), f"permute at {p}")
+        root = p - 1
+        _, _, sl = comm.chunk((N, F), 0, rank=root)
+        got = timed(torch, metrics, f"{tag}_bcast", lambda: comm.bcast(X.larray, root=root, split=0))
+        exact(got.cpu().numpy(), data[sl], f"bcast at {p}")
+        got = comm.gather(comm.scatter(X.larray, axis=0), axis=0)
+        exact(got.cpu().numpy(), data, f"scatter + gather at {p}")
+        del got
+
+        if p == POSITIONS:
+            rng = np.random.default_rng(1)
+            stacked = torch.from_numpy(rng.normal(size=(POSITIONS, PAYLOAD)).astype(np.float32)).to(dev)
+            with cq.collective_precision("int8_block"):
+                for fn in counted:
+                    fn.launches = 0
+                g8 = comm.gather(X.larray, axis=0)
+                r8 = comm.reduce(stacked, "sum")
+                torch.cuda.synchronize()
+                launches = {f"blockquant_{fn.__name__.removesuffix('_blocks')}": fn.launches for fn in counted}
+                timed(torch, metrics, "p4_gather_int8", lambda: comm.gather(X.larray, axis=0))
+                timed(torch, metrics, "p4_reduce_int8", lambda: comm.reduce(stacked, "sum"))
+            # one quantize + one dequantize for the gather; the reduce's
+            # ring: one quantize, POSITIONS - 1 hops, one dequantize
+            expected = {"blockquant_quantize": 2, "blockquant_dequantize": 2,
+                        "blockquant_dequantize_fma": 0, "blockquant_dequantize_add_quantize": POSITIONS - 1}
+            check(launches == expected, f"phase 9 int8 launches {launches} != {expected}")
+            # the gather's B1 and B2 at the shape it gives them (N * F / BLOCK
+            # rows), bitwise against their plain versions, and the gathered
+            # values bitwise the plain round trip
+            payload = X.larray.reshape(-1)
+            q, s = cq.quantize_blocks(payload)
+            q_plain, s_plain = cq.quantize_blocks_plain(payload.reshape(-1, BLOCK))
+            check(bitwise_equal(q, q_plain) and bitwise_equal(s, s_plain),
+                  f"phase 9 quantize_blocks at {tuple(q.shape)} != quantize_blocks_plain, bitwise")
+            deq = cq.dequantize_blocks(q, s)
+            check(bitwise_equal(deq, cq.dequantize_blocks_plain(q, s)),
+                  f"phase 9 dequantize_blocks at {tuple(q.shape)} != dequantize_blocks_plain, bitwise")
+            check(bitwise_equal(g8.reshape(-1), cq.dequantize_blocks_plain(q_plain, s_plain)),
+                  "int8 gather != the plain quantize/dequantize round trip, bitwise")
+            metrics["p4_gather_int8_blocks"] = int(q.shape[0])
+            del payload, q, s, q_plain, s_plain, deq
+            flat = data.reshape(-1, BLOCK).astype(np.float64)
+            g_err = np.abs(g8.cpu().numpy().reshape(-1, BLOCK) - flat)
+            # half a scale, plus the float32 rounding of the scale, the
+            # quotient and the decode (absmax 2^-22 in all)
+            g_bound = np.abs(flat).max(axis=1, keepdims=True) * (1.0 / 254.0 + 2.0 ** -22)
+            check(bool((g_err <= g_bound).all()), "int8 gather: a value outside its block's absmax/254")
+            check(bool((g_err > 0).any()), "int8 gather did not quantize")
+            s64 = stacked.double().cpu().numpy()
+            r_bound = POSITIONS * float(np.abs(s64).max(axis=1).sum()) / 254.0
+            r_err = float(np.abs(r8.cpu().numpy() - s64.sum(0)).max())
+            check(r_err <= r_bound, f"int8 reduce error {r_err} outside p*sum(absmax)/254 = {r_bound}")
+            check(bitwise_equal(r8, ring_unfused(torch, cq, stacked, POSITIONS)),
+                  "int8 reduce != the ring of unfused kernels, bitwise")
+            metrics["p4_gather_int8_max_err"] = float(g_err.max())
+            metrics["p4_reduce_int8_err"], metrics["p4_reduce_int8_bound"] = r_err, r_bound
+            print(f"  int8_block: launches {launches}; gather's B1/B2 bitwise their plain versions at "
+                  f"{metrics['p4_gather_int8_blocks']} blocks; gather within absmax/254 of each block (max error "
+                  f"{g_err.max():.4g}); reduce error {r_err:.4g} (bound {r_bound:.4g}), bitwise the unfused ring")
+            del g8, r8, stacked, g_err, flat
+
+        # where, nonzero and a boolean mask's count, exact
+        col = data[:, 0]
+        mask = X[:, 0] > 0
+        nz = timed(torch, metrics, f"{tag}_nonzero", lambda: htt.nonzero(mask))
+        exact(nz.numpy(), np.nonzero(col > 0)[0].astype(np.int64), f"nonzero at {p}")
+        check(nz.split == 0 and nz.dtype is htt.int64, "nonzero: not int64 split 0")
+        w = timed(torch, metrics, f"{tag}_where", lambda: htt.where(mask, X[:, 0], 0.0))
+        exact(w.numpy(), np.where(col > 0, col, np.float32(0.0)), f"where at {p}")
+        check(int(mask.sum().item()) == int((col > 0).sum()), f"mask count at {p}")
+
+        # setitem across position boundaries, exact
+        Y, Yn = X.copy(), data.copy()
+        edge = N // POSITIONS  # the position boundaries at POSITIONS
+        value = np.arange(40, dtype=np.float32).reshape(10, 4)
+        keys = (((slice(edge - 10, edge + 10)), -1.0), ((slice(2 * edge - 5, 2 * edge + 5), slice(3, 7)), value),
+                ((slice(None, None, -50_000), 0), 7.0), ((min(3 * edge, N - 1),), np.arange(F, dtype=np.float32)))
+
+        def write():
+            for key, val in keys:
+                Y[key] = val
+
+        timed(torch, metrics, f"{tag}_setitem", write)
+        for key, val in keys:
+            Yn[key] = val
+        exact(Y.numpy(), Yn, f"setitem at {p}")
+        del Y, Yn
+
+        d = timed(torch, metrics, f"{tag}_diff", lambda: htt.diff(X, axis=0))
+        exact(d.numpy(), np.diff(data, axis=0), f"diff at {p}")
+        del d
+
+        # halos at HALO rows, exact
+        timed(torch, metrics, f"{tag}_get_halo", lambda: X.get_halo(HALO))
+        blk = data.reshape(p, -1, F)
+        zeros = np.zeros((1, HALO, F), np.float32)
+        prev = np.concatenate([zeros, blk[:-1, -HALO:]]) if p > 1 else zeros
+        nxt = np.concatenate([blk[1:, :HALO], zeros]) if p > 1 else zeros
+        exact(X.halo_prev.cpu().numpy(), prev.reshape(-1, F), f"halo_prev at {p}")
+        exact(X.halo_next.cpu().numpy(), nxt.reshape(-1, F), f"halo_next at {p}")
+        exact(X.array_with_halos.cpu().numpy(), np.concatenate([prev, blk, nxt], axis=1).reshape(-1, F),
+              f"array_with_halos at {p}")
+
+        # factories, bitwise the port's CPU results
+        eye = timed(torch, metrics, f"{tag}_eye", lambda: htt.eye(EYE_N, split=0, comm=comm))
+        check(bool(torch.equal(eye.larray.cpu(), htt.eye(EYE_N, split=0, comm=cpu).larray)), f"eye at {p}")
+        del eye
+        for name in ("linspace", "logspace"):
+            fn = getattr(htt, name)
+            got = timed(torch, metrics, f"{tag}_{name}", lambda: fn(-3, 2, N, split=0, comm=comm))
+            check(bool(torch.equal(got.larray.cpu(), fn(-3, 2, N, split=0, comm=cpu).larray)),
+                  f"{name} at {p}: not bitwise the CPU's")
+
+        # the printed string equals the CPU's
+        text = timed(torch, metrics, f"{tag}_str", lambda: str(X))
+        check(text.replace("device=gpu", "device=cpu") == str(htt.array(data, split=0, comm=cpu)),
+              f"str at {p} differs from the CPU's")
+        del X, mask, nz, w, parts, blocks
+
+    # division by zero and shifts past the width: numpy's values
+    comm = htt.TorchCommunication([dev] * POSITIONS)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for dtype in ("int32", "int64", "float32", "float64"):
+            num = np.array([7, -7, 5, 0, 1.5, -2.5, 3, 9], np.float64).astype(dtype)
+            den = np.array([0, 2, -3, 0, 0, 0, -1, 0], np.float64).astype(dtype)
+            a, b = htt.array(num, split=0, comm=comm), htt.array(den, split=0, comm=comm)
+            for name, fn in (("floordiv", np.floor_divide), ("mod", np.remainder), ("fmod", np.fmod)):
+                # equal values (a zero remainder's sign is the reference's, not numpy's)
+                got = getattr(htt, name)(a, b).numpy()
+                check(got.dtype == num.dtype and np.array_equal(got, fn(num, den), equal_nan=True),
+                      f"{name} by zero, {dtype}: {got} != numpy's {fn(num, den)}")
+    for dtype in ("int32", "int64", "int8"):
+        bits = np.iinfo(dtype).bits
+        a = np.array([5, -5, -1, 100, -128, 127, 3, -3], dtype)
+        c = np.array([1, bits - 1, bits, bits + 1, 40 % 127, 2 * bits % 127, 0, bits], dtype)
+        x, s = htt.array(a, comm=comm), htt.array(c, comm=comm)
+        big = c.astype(np.int64) >= bits
+        lw = np.where(big, 0, np.left_shift(a, np.minimum(c, bits - 1)))
+        rw = np.where(big, np.where(a < 0, -1, 0), np.right_shift(a, np.minimum(c, bits - 1)))
+        exact(htt.left_shift(x, s).numpy(), lw.astype(dtype), f"left_shift {dtype}")
+        exact(htt.right_shift(x, s).numpy(), rw.astype(dtype), f"right_shift {dtype}")
+    print("phase 9: division by zero gives numpy's values; shifts past the width give 0 / the sign fill")
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -1654,6 +1928,11 @@ def run(dev, out_path=None) -> int:
     for row in kernel_rows:
         row["launches_by_phase"]["8"] = nb_launches[row["name"]]
         row["launches"] += nb_launches[row["name"]]
+    # ---------------------------------------------------------------- 9
+    api_launches, api_metrics = phase_array_api(torch, htt, cq, dev, data, counted)
+    for row in kernel_rows:
+        row["launches_by_phase"]["9"] = api_launches[row["name"]]
+        row["launches"] += api_launches[row["name"]]
     kernel_rows += attn_rows
 
     metrics = {
@@ -1669,6 +1948,7 @@ def run(dev, out_path=None) -> int:
         **rng_metrics,
         **kc_metrics,
         **est_metrics,
+        **api_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

@@ -1,27 +1,37 @@
 """Core: types, devices, the communicator, DNDarray, factories, ops and
-linear algebra."""
+linear algebra (the flat namespace of ``heat_tpu/core/__init__.py``)."""
 
-from . import types
-from .arithmetics import *  # noqa: F401,F403
-from .base import (
-    BaseEstimator,
-    ClassificationMixin,
-    ClusteringMixin,
-    RegressionMixin,
-    is_classifier,
-    is_regressor,
-)
-from .communication import TorchCommunication, comm_for_device, get_comm, sanitize_comm, use_comm
+from .communication import *  # noqa: F401,F403
 from .devices import cpu, get_device, gpu, sanitize_device, use_device
-from .dndarray import DNDarray
+from . import types
+from .types import *  # noqa: F401,F403
+from .constants import *  # noqa: F401,F403
+from .stride_tricks import *  # noqa: F401,F403
+from .memory import *  # noqa: F401,F403
+from . import sanitation
+from .sanitation import *  # noqa: F401,F403
+from .dndarray import *  # noqa: F401,F403
+from . import factories
 from .factories import *  # noqa: F401,F403
-from .statistics import *  # noqa: F401,F403
-from .exponential import *  # noqa: F401,F403
-from .logical import *  # noqa: F401,F403
+from . import arithmetics
+from .arithmetics import *  # noqa: F401,F403
+from . import relational
 from .relational import *  # noqa: F401,F403
-from .rounding import *  # noqa: F401,F403
+from . import logical
+from .logical import *  # noqa: F401,F403
+from . import exponential
+from .exponential import *  # noqa: F401,F403
+from . import trigonometrics
 from .trigonometrics import *  # noqa: F401,F403
-from . import linalg
+from . import rounding
+from .rounding import *  # noqa: F401,F403
+from . import statistics
+from .statistics import *  # noqa: F401,F403
+from . import indexing
+from .indexing import *  # noqa: F401,F403
+from . import printing
+from .printing import get_printoptions, set_printoptions
+from .base import *  # noqa: F401,F403
 from . import random
+from . import linalg
 from .linalg import *  # noqa: F401,F403
-from .types import bfloat16, bool, float16, float32, float64, int8, int16, int32, int64, promote_types, uint8

@@ -1,10 +1,14 @@
 """The generic op engine behind the elementwise ops and reductions.
 
-Port of ``heat_tpu/core/_operations.py``: ``__binary_op``, ``__local_op``
-and ``__reduce_op``.  Every op computes on the true-shape global views
-with torch and re-wraps the result, which re-pads a ragged split axis with
-zeros (the pad invariant of :mod:`.dndarray`).  Promotion is torch's,
-which agrees with the reference's lattice on the slice's types.
+Port of ``heat_tpu/core/_operations.py``: ``__binary_op``,
+``__local_op``, ``__reduce_op`` and ``__cum_op``.  Every op computes on
+the true-shape global views with torch and re-wraps the result, which
+re-pads a ragged split axis with zeros (the pad invariant of
+:mod:`.dndarray`).  Promotion is torch's,
+which agrees with the reference's lattice on the slice's types, with the
+reference's weak Python scalars on top.  A cumulative op along the split
+axis runs as the two-level scan of
+:func:`heat_tpu_torch.parallel.prefix_scan`.
 
 The reduction engine keeps the reference's collective-precision seam: a
 sum whose axes cover the split axis, on a communicator of several
@@ -25,7 +29,7 @@ import torch
 from . import sanitation, types
 from .dndarray import DNDarray
 
-__all__ = ["__binary_op", "__local_op", "__reduce_op"]
+__all__ = ["__binary_op", "__local_op", "__reduce_op", "__cum_op"]
 
 
 def _axes(ndim: int, axis) -> tuple:
@@ -63,6 +67,17 @@ def _out(out: Optional[DNDarray], wrapped: DNDarray) -> DNDarray:
     return out
 
 
+def _operand_type(t):
+    """What an operand counts as for promotion: a DNDarray its type, a
+    Python scalar itself (weak), a numpy scalar or host data (a list, a
+    numpy array) the numpy type it converts to."""
+    if isinstance(t, DNDarray):
+        return t.dtype
+    if isinstance(t, (bool, int, float)) and not isinstance(t, np.generic):
+        return t
+    return types.canonical_heat_type(np.asarray(t).dtype)
+
+
 def __binary_op(
     operation: Callable,
     t1,
@@ -70,16 +85,23 @@ def __binary_op(
     out: Optional[DNDarray] = None,
     fn_kwargs: Optional[dict] = None,
 ) -> DNDarray:
-    """Elementwise binary op with broadcasting.  The result takes the
-    split of the split operand (re-anchored from the right when
-    broadcasting prepends axes); two differently split operands compute
-    on their global views and keep ``t1``'s split."""
+    """Elementwise binary op with broadcasting.  Both operands are cast to
+    the type the reference computes in (:func:`types._weak_result_type`:
+    Python scalars are weak, a Python ``float`` beside an exact array
+    gives float64) before ``operation`` runs.  The result takes the split
+    of the split operand (re-anchored from the right when broadcasting
+    prepends axes); two differently split operands compute on their
+    global views and keep ``t1``'s split."""
     fn_kwargs = fn_kwargs or {}
     scalar_1, scalar_2 = np.isscalar(t1), np.isscalar(t2)
     if scalar_1 and scalar_2:
         from . import factories
 
-        return factories.array(operation(torch.as_tensor(t1), torch.as_tensor(t2), **fn_kwargs))
+        target = types._weak_result_type(_operand_type(t1), _operand_type(t2)).torch_type()
+        return factories.array(
+            operation(torch.tensor(types._cast_scalar(t1, target), dtype=target),
+                      torch.tensor(types._cast_scalar(t2, target), dtype=target), **fn_kwargs)
+        )
     if scalar_1:
         anchor = t2
     elif isinstance(t1, DNDarray):
@@ -91,17 +113,22 @@ def __binary_op(
     if not isinstance(anchor, DNDarray):
         raise TypeError(f"expected a DNDarray or scalar, got {type(anchor)}")
 
-    a1 = t1 if scalar_1 else t1.larray
-    if scalar_2:
-        a2 = t2
-    elif isinstance(t2, DNDarray):
-        a2 = t2.larray
-    else:  # host data (a numpy array, a list) as the right operand
-        a2 = torch.as_tensor(np.asarray(t2), device=a1.device)
-    if scalar_1:
-        result = operation(torch.as_tensor(t1, dtype=torch.result_type(a2, t1), device=a2.device), a2, **fn_kwargs)
-    else:
-        result = operation(a1, a2, **fn_kwargs)
+    target = types._weak_result_type(_operand_type(t1), _operand_type(t2)).torch_type()
+    dev = anchor.larray.device
+
+    def operand(t, first: bool):
+        if isinstance(t, DNDarray):
+            return t.larray.to(target)
+        if np.isscalar(t):
+            value = t.item() if isinstance(t, np.generic) else t
+            if isinstance(value, bool) and target != torch.bool:
+                value = int(value)
+            value = types._cast_scalar(value, target)
+            # torch takes a scalar as the second operand only
+            return torch.tensor(value, dtype=target, device=dev) if first else value
+        return types._cast(torch.as_tensor(np.asarray(t), device=dev), target)
+
+    result = operation(operand(t1, True), operand(t2, False), **fn_kwargs)
     split = anchor.split
     if split is not None:
         split = split + (result.ndim - anchor.ndim)
@@ -185,3 +212,50 @@ def _sum(a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
     if not axes:
         return a.to(torch.int64) if a.dtype in (torch.bool, torch.int32) else a.clone()
     return torch.sum(a, dim=axes, keepdim=keepdims)
+
+
+def _prod(a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
+    """Product over ``axes``; exact types accumulate in int64, as the
+    reference's."""
+    if not axes:
+        return a.to(torch.int64) if not a.dtype.is_floating_point else a.clone()
+    for ax in sorted(axes, reverse=True):
+        a = torch.prod(a, dim=ax, keepdim=keepdims)
+    return a
+
+
+def __cum_op(
+    operation: Callable,
+    x,
+    axis: int,
+    out: Optional[DNDarray] = None,
+    dtype=None,
+) -> DNDarray:
+    """Cumulative ``torch.cumsum``/``torch.cumprod`` along ``axis``.  Along
+    the split axis of a communicator of several positions it runs as the
+    two-level scan (a local scan per position, then each position combines
+    the totals of those before it); a long axis scans in blocks
+    (:func:`heat_tpu_torch.parallel.primitives.local_scan`).  Integer
+    results keep the input's type (bool counts in int64), as the
+    reference's, and ``dtype`` casts the result."""
+    sanitation.sanitize_in(x)
+    axis = sanitation.sanitize_axis(x.shape, axis)
+    if axis is None:
+        raise NotImplementedError("cumulative operations require an explicit axis")
+    cast = types.canonical_heat_type(dtype).torch_type() if dtype is not None else None
+    from ..parallel.primitives import local_scan, prefix_scan
+
+    scan_op = {torch.cumsum: "sum", torch.cumprod: "prod"}[operation]
+    arr = x.larray
+    if axis == x.split and x.comm.size > 1:
+        result = prefix_scan(arr, scan_op, comm=x.comm, axis=axis)
+    else:
+        result = local_scan(arr, scan_op, axis)
+    if arr.dtype != torch.bool:
+        result = result.to(arr.dtype)
+    if cast is not None:
+        result = result.to(cast)
+    wrapped = DNDarray(
+        result, x.gshape, types.canonical_heat_type(result.dtype), x.split, x.device, x.comm,
+    )
+    return _out(out, wrapped)

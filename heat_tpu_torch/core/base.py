@@ -1,6 +1,6 @@
 """sklearn-style estimator API: ``BaseEstimator``, ``ClassificationMixin``,
-``ClusteringMixin``, ``RegressionMixin``, ``is_classifier`` and
-``is_regressor``.
+``ClusteringMixin``, ``RegressionMixin``, ``TransformMixin`` and the
+``is_*`` predicates.
 
 Port of ``heat_tpu/core/base.py`` without its telemetry span wrapping.
 """
@@ -15,8 +15,12 @@ __all__ = [
     "ClassificationMixin",
     "ClusteringMixin",
     "RegressionMixin",
+    "TransformMixin",
     "is_classifier",
+    "is_clusterer",
+    "is_estimator",
     "is_regressor",
+    "is_transformer",
 ]
 
 
@@ -121,6 +125,26 @@ class RegressionMixin:
         raise NotImplementedError()
 
 
+class TransformMixin:
+    """Mixin for transformers: ``fit``/``transform``."""
+
+    def fit(self, x):
+        raise NotImplementedError()
+
+    def transform(self, x):
+        raise NotImplementedError()
+
+    def fit_transform(self, x):
+        """Fit, then return the transform of ``x``."""
+        self.fit(x)
+        return self.transform(x)
+
+
+def is_estimator(obj) -> bool:
+    """True for an estimator."""
+    return isinstance(obj, BaseEstimator)
+
+
 def is_classifier(obj) -> bool:
     """True for a classification estimator."""
     return getattr(obj, "_estimator_type", None) == "classifier"
@@ -129,3 +153,13 @@ def is_classifier(obj) -> bool:
 def is_regressor(obj) -> bool:
     """True for a regression estimator."""
     return getattr(obj, "_estimator_type", None) == "regressor"
+
+
+def is_clusterer(obj) -> bool:
+    """True for a clustering estimator."""
+    return getattr(obj, "_estimator_type", None) == "clusterer"
+
+
+def is_transformer(obj) -> bool:
+    """True for a transformer."""
+    return isinstance(obj, TransformMixin)

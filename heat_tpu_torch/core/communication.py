@@ -25,12 +25,22 @@ import torch
 from . import devices
 
 __all__ = [
+    "Communication",
+    "MESH_AXIS",
     "TorchCommunication",
     "get_comm",
     "use_comm",
     "sanitize_comm",
     "comm_for_device",
 ]
+
+
+#: name of the positions axis (the reference's mesh axis name)
+MESH_AXIS = "heat"
+
+
+class Communication:
+    """The communication seam every communicator implements."""
 
 
 def _torch_device(d: Union[str, torch.device]) -> torch.device:
@@ -44,7 +54,7 @@ def _nbytes(array: torch.Tensor) -> int:
     return array.numel() * array.element_size()
 
 
-class TorchCommunication:
+class TorchCommunication(Communication):
     """A communicator over ``positions``, a sequence of torch devices (or
     their names), one entry per position.  Defaults to one position per
     visible CUDA device, or one CPU position when the default device is
@@ -243,6 +253,111 @@ class TorchCommunication:
         array = self.pad_to_shards(array, axis=0)
         blocks = array.reshape((n, -1) + tuple(array.shape[1:]))
         return torch.roll(blocks, shifts=int(shift), dims=0).reshape(array.shape)
+
+    def commit_split(self, array: torch.Tensor, split: Optional[int]) -> torch.Tensor:
+        """The at-rest form of a TRUE-shape global tensor laid out at
+        ``split``: a ragged split axis zero-padded to its canonical length
+        (what :meth:`resplit` gives; the reference's ``resplit`` keeps the
+        true shape and this one pads)."""
+        return self.resplit(array, split)
+
+    def permute(self, array: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """Point-to-point exchange of axis-0 shards: for every ``(src,
+        dst)`` pair of ``perm``, position ``dst`` receives position
+        ``src``'s shard; positions that receive nothing get zeros.  A
+        non-divisible axis is zero-padded first, so the result has the
+        padded length ``padded_size(n)`` and destination block ``dst``
+        carries ``valid_counts(n)[src]`` real leading rows.  Duplicate
+        sources or destinations, and positions out of range, raise
+        ``ValueError``."""
+        n = self.size
+        if n == 1:
+            return array
+        array = self.pad_to_shards(array, axis=0)
+        perm = tuple((int(s), int(d)) for s, d in perm)
+        srcs = [s for s, _ in perm]
+        dsts = [d for _, d in perm]
+        bad = [v for v in srcs + dsts if not 0 <= v < n]
+        if bad:
+            raise ValueError(f"permute: index {bad[0]} out of range for {n} shards")
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+            raise ValueError(
+                f"permute: perm {perm} is not a partial bijection "
+                "(duplicate source or destination)"
+            )
+        blocks = array.reshape((n, -1) + tuple(array.shape[1:]))
+        out = torch.zeros_like(blocks)
+        if perm:
+            idx = lambda v: torch.tensor(v, dtype=torch.int64, device=array.device)  # noqa: E731
+            out.index_copy_(0, idx(dsts), blocks.index_select(0, idx(srcs)))
+        return out.reshape(array.shape)
+
+    def bcast(self, array: torch.Tensor, root: int = 0, split: Optional[int] = None) -> torch.Tensor:
+        """Position ``root``'s shard of a global tensor split at ``split``,
+        replicated: the root's block along ``split`` (its ``lshape``).  A
+        tensor carries no layout, so the split is an argument here where
+        the reference reads it from the array's sharding; ``None`` (a
+        replicated input) returns the input."""
+        if self.size == 1 or split is None or array.ndim == 0:
+            return array
+        _, _, slices = self.chunk(tuple(array.shape), split, rank=root)
+        return array[slices].clone()
+
+    def scatter(self, array: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Lay a replicated global tensor out so each position owns one
+        block along ``axis``.  The global tensor already holds every
+        block, so its values come back unchanged."""
+        del axis
+        return array
+
+    def gather(self, array: torch.Tensor, root: int = 0, axis: Optional[int] = 0) -> torch.Tensor:
+        """Collect every shard of a global tensor split at ``axis``: the
+        :meth:`allgather` (every position ends up with the whole tensor;
+        ``root`` is kept for the reference's signature), so a compressing
+        policy puts it on the quantized ring."""
+        del root
+        return self.allgather(array, axis=axis)
+
+    def reduce(self, array: torch.Tensor, op: str = "sum", root: int = 0) -> torch.Tensor:
+        """Reduce a per-position quantity of shape ``(size, ...)``: the
+        :meth:`allreduce` (the result is everywhere; ``root`` is kept for
+        the reference's signature), so a compressing policy puts a sum on
+        the quantized ring."""
+        del root
+        return self.allreduce(array, op=op)
+
+    def scan(self, array: torch.Tensor, op: str = "sum", exclusive: bool = False) -> torch.Tensor:
+        """Prefix-combine a per-position quantity of shape ``(size, ...)``
+        across the positions: row ``r`` of the result combines rows
+        ``0..r`` (``exclusive``: ``0..r-1``, and row 0 holds the op's
+        identity: 0 for sum, 1 for prod, ``finfo``/``iinfo`` min for max
+        and max for min).  Integer sums and products keep the input's
+        type (wrapping), as the reference's."""
+        if op not in ("sum", "prod", "max", "min"):
+            raise ValueError(f"unsupported scan op {op!r}")
+        n = self.size
+        if int(array.shape[0]) != n:
+            raise ValueError(
+                f"scan expects one block per mesh position: leading axis "
+                f"{array.shape[0]} != mesh size {n}"
+            )
+        if op in ("sum", "prod"):
+            fn = torch.cumsum if op == "sum" else torch.cumprod
+            out = fn(array, dim=0)
+            if array.dtype != torch.bool:
+                out = out.to(array.dtype)
+            ident = 0 if op == "sum" else 1
+        else:
+            out = (torch.cummax if op == "max" else torch.cummin)(array, dim=0).values
+            info = torch.finfo if array.dtype.is_floating_point else torch.iinfo
+            ident = info(array.dtype).min if op == "max" else info(array.dtype).max
+        if exclusive:
+            out = torch.cat([torch.full_like(out[:1], ident), out[:-1]], dim=0)
+        return out
+
+    def exscan(self, array: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Exclusive :meth:`scan`."""
+        return self.scan(array, op=op, exclusive=True)
 
 
 # ---------------------------------------------------------------------- #

@@ -14,10 +14,17 @@ Invariants:
   whole shard without masking (the reference keeps pads unspecified and
   relies on callers; here the invariant is kept centrally);
 * ``split`` is ``None`` (replicated) or an axis index.
+
+The layout is canonical, so every array is balanced: ``balance_`` is a
+no-op and ``redistribute_`` accepts only the canonical map, as in the
+reference.  ``__setitem__`` and ``fill_diagonal`` write into a copy and
+rebind it, so an array that shares storage with this one (a basic-index
+view) keeps its values, as the reference's immutable arrays do.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,7 +34,64 @@ from . import types
 from .communication import TorchCommunication
 from .devices import Device
 
-__all__ = ["DNDarray"]
+__all__ = ["DNDarray", "LocalIndex"]
+
+
+def _array_key_error(k) -> NotImplementedError:
+    return NotImplementedError(
+        f"DNDarray indexing with {type(k).__name__} keys needs the ring gather "
+        "of parallel/take.py (ROADMAP queue A, item 6); integers, slices, "
+        "Ellipsis, None and scalar bools are supported"
+    )
+
+
+def _inserts(k) -> bool:
+    """``None`` and scalar bools insert an axis (of length 0 for False)."""
+    return k is None or isinstance(k, (bool, np.bool_))
+
+
+def _basic_key(key, ndim: int) -> list:
+    """``key`` as a list of basic index elements, one per axis of the
+    input and one per inserted axis, ``Ellipsis`` expanded; array keys
+    raise ``NotImplementedError``, too many indices ``IndexError``."""
+    keyt = key if isinstance(key, tuple) else (key,)
+    for k in keyt:
+        if not (k is None or k is Ellipsis or isinstance(k, (slice, int, np.integer, np.bool_))):
+            raise _array_key_error(k)
+    used = sum(1 for k in keyt if not _inserts(k) and k is not Ellipsis)
+    if used > ndim:
+        raise IndexError(
+            f"too many indices for array: array is {ndim}-dimensional, but {used} were indexed"
+        )
+    if sum(1 for k in keyt if k is Ellipsis) > 1:
+        raise IndexError("an index can only have a single ellipsis ('...')")
+    fill = [slice(None)] * (ndim - used)
+    expanded = []
+    for k in keyt:
+        expanded += fill if k is Ellipsis else [k]
+    if not any(k is Ellipsis for k in keyt):
+        expanded += fill
+    return expanded
+
+
+class LocalIndex:
+    """Indexer over the raw global tensor (``x.lloc``), without split
+    bookkeeping; assignment writes a copy and rebinds it."""
+
+    __slots__ = ("__obj",)
+
+    def __init__(self, obj: "DNDarray"):
+        self.__obj = obj
+
+    def __getitem__(self, key):
+        return self.__obj.larray[key]
+
+    def __setitem__(self, key, value):
+        obj = self.__obj
+        buf = obj._buffer.clone()
+        arr = buf if obj.split is None else obj.comm.unpad(buf, obj.gshape[obj.split], obj.split)
+        arr[key] = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+        obj._rebind(DNDarray(buf, obj.gshape, obj.dtype, obj.split, obj.device, obj.comm))
 
 
 class DNDarray:
@@ -72,6 +136,9 @@ class DNDarray:
                 split = int(split) % ndim
         self.__split = split
         self.__array = self.__commit(array)
+        self.__halo_prev = None
+        self.__halo_next = None
+        self.__halo_size = 0
 
     def __commit(self, array: torch.Tensor) -> torch.Tensor:
         """Bring ``array`` to the at-rest form: pad a ragged split axis."""
@@ -149,6 +216,120 @@ class DNDarray:
         _, lshape, _ = self.__comm.chunk(self.__gshape, self.__split, rank=0)
         return lshape
 
+    @property
+    def lshape_map(self) -> np.ndarray:
+        """``(positions, ndim)`` table of every position's shard shape."""
+        return self.create_lshape_map()
+
+    def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
+        """``(positions, max(ndim, 1))`` int64 table of every position's
+        shard shape, from the canonical layout."""
+        size = self.__comm.size
+        out = np.zeros((size, max(self.ndim, 1)), dtype=np.int64)
+        for r in range(size):
+            _, lshape, _ = self.__comm.chunk(self.__gshape, self.__split, rank=r)
+            out[r, : len(lshape)] = lshape
+        return out
+
+    @property
+    def balanced(self) -> bool:
+        """Always True: the canonical layout is balanced."""
+        return True
+
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """Always True: the canonical layout is balanced."""
+        return True
+
+    def balance_(self) -> None:
+        """A no-op: the canonical layout is balanced."""
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> None:
+        """Accepts the canonical shard map as the no-op it is; any other
+        map asks for a layout the canonical equal-chunk layout cannot
+        hold, and raises ``NotImplementedError``."""
+        if target_map is None:
+            return
+        target = np.asarray(target_map)
+        canonical = self.create_lshape_map()
+        if target.size != canonical.size:
+            raise ValueError(
+                f"target_map must have shape {canonical.shape} "
+                f"(one lshape row per shard), got {target.shape}"
+            )
+        target = target.reshape(canonical.shape)
+        if np.array_equal(target, canonical):
+            return
+        raise NotImplementedError(
+            "redistribute_: non-canonical per-position shard sizes are not "
+            "representable; heat_tpu_torch always keeps the canonical "
+            f"equal-chunk layout ({canonical.tolist()}). Requested {target.tolist()}."
+        )
+
+    def is_distributed(self) -> bool:
+        """True when the data is split over more than one position."""
+        return self.__split is not None and self.__comm.size > 1
+
+    @property
+    def gnumel(self) -> int:
+        return self.size
+
+    @property
+    def lnumel(self) -> int:
+        """Elements of position 0's shard."""
+        return int(np.prod(self.lshape)) if self.lshape else 1
+
+    @property
+    def itemsize(self) -> int:
+        return self.__array.element_size()
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the global array (at its true shape)."""
+        return self.size * self.itemsize
+
+    @property
+    def gnbytes(self) -> int:
+        return self.nbytes
+
+    @property
+    def lnbytes(self) -> int:
+        return self.lnumel * self.itemsize
+
+    @property
+    def stride(self) -> Tuple[int, ...]:
+        """C-order element strides of the global shape."""
+        strides, acc = [], 1
+        for s in reversed(self.__gshape):
+            strides.append(acc)
+            acc *= s
+        return tuple(reversed(strides))
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """C-order byte strides of the global shape."""
+        return tuple(s * self.itemsize for s in self.stride)
+
+    @property
+    def numdims(self) -> int:
+        """Deprecated alias of :attr:`ndim`."""
+        warnings.warn("numdims is deprecated, use ndim instead", DeprecationWarning, stacklevel=2)
+        return self.ndim
+
+    @property
+    def real(self) -> "DNDarray":
+        return self
+
+    @property
+    def imag(self) -> "DNDarray":
+        from . import factories
+
+        return factories.zeros_like(self)
+
+    @property
+    def lloc(self) -> LocalIndex:
+        """Raw indexer over the global tensor (no split bookkeeping)."""
+        return LocalIndex(self)
+
     # ------------------------------------------------------------------ #
     # conversion                                                          #
     # ------------------------------------------------------------------ #
@@ -185,17 +366,59 @@ class DNDarray:
             raise TypeError("len() of a 0-d DNDarray")
         return self.__gshape[0]
 
-    def __repr__(self) -> str:
-        return (
-            f"DNDarray({self.numpy()!r}, dtype=ht.{self.__dtype.__name__}, "
-            f"device={self.__device}, split={self.__split})"
-        )
+    def __complex__(self) -> complex:
+        return complex(self.item())
 
-    def astype(self, dtype) -> "DNDarray":
-        """A copy cast to ``dtype``."""
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __repr__(self) -> str:
+        from . import printing
+
+        return printing.__str__(self)
+
+    def __str__(self) -> str:
+        from . import printing
+
+        return printing.__str__(self)
+
+    def tolist(self, keepsplit: bool = False) -> list:
+        """Nested Python lists of the global values."""
+        return self.numpy().tolist()
+
+    def copy(self) -> "DNDarray":
+        """An independent copy."""
+        from . import memory
+
+        return memory.copy(self)
+
+    def cpu(self) -> "DNDarray":
+        """The array on the CPU."""
+        return self.to_device("cpu")
+
+    def to_device(self, device) -> "DNDarray":
+        """The array on ``device``'s default communicator, at the same
+        split (``self`` when it is there already)."""
+        from .communication import comm_for_device
+        from .devices import sanitize_device
+
+        device = sanitize_device(device)
+        if device is self.__device:
+            return self
+        comm = comm_for_device(device)
+        return DNDarray(self.larray.to(comm.device), self.__gshape, self.__dtype, self.__split, device, comm)
+
+    def astype(self, dtype, copy: bool = True) -> "DNDarray":
+        """Cast to ``dtype``: a copy, or with ``copy=False`` this array,
+        recast in place."""
         dtype = types.canonical_heat_type(dtype)
-        buf = self.__array.to(dtype.torch_type(), copy=True)
-        return DNDarray(buf, self.__gshape, dtype, self.__split, self.__device, self.__comm)
+        buf = types._cast(self.__array, dtype.torch_type(), copy=True)
+        if copy:
+            return DNDarray(buf, self.__gshape, dtype, self.__split, self.__device, self.__comm)
+        self.__array, self.__dtype = buf, dtype
+        self._invalidate_halos()
+        return self
 
     def __getitem__(self, key) -> "DNDarray":
         """Basic indexing with global semantics: integers, slices (any
@@ -205,32 +428,9 @@ class DNDarray:
         split axis hands it to the nearest remaining axis; a 0-d result is
         replicated.  Array keys need the ring gather of
         ``parallel/take.py`` (not ported yet)."""
-        keyt = key if isinstance(key, tuple) else (key,)
-        for k in keyt:
-            if not (k is None or k is Ellipsis or isinstance(k, (slice, int, np.integer, np.bool_))):
-                raise NotImplementedError(
-                    f"DNDarray indexing with {type(k).__name__} keys needs the ring gather "
-                    "of parallel/take.py (ROADMAP queue A, item 6); integers, slices, "
-                    "Ellipsis, None and scalar bools are supported"
-                )
-        inserts = lambda k: k is None or isinstance(k, (bool, np.bool_))  # noqa: E731
-        used = sum(1 for k in keyt if not inserts(k) and k is not Ellipsis)
-        if used > self.ndim:
-            raise IndexError(
-                f"too many indices for array: array is {self.ndim}-dimensional, but {used} were indexed"
-            )
-        if sum(1 for k in keyt if k is Ellipsis) > 1:
-            raise IndexError("an index can only have a single ellipsis ('...')")
-        fill = [slice(None)] * (self.ndim - used)
-        expanded = []
-        for k in keyt:
-            expanded += fill if k is Ellipsis else [k]
-        if not any(k is Ellipsis for k in keyt):
-            expanded += fill
-
         arr, out_axis, in_axis, split = self.larray, 0, 0, None
-        for k in expanded:
-            if inserts(k):
+        for k in _basic_key(key, self.ndim):
+            if _inserts(k):
                 arr = arr.unsqueeze(out_axis)
                 if k is not None and not k:
                     arr = arr.narrow(out_axis, 0, 0)
@@ -252,21 +452,127 @@ class DNDarray:
             split = None if arr.ndim == 0 else min(split, arr.ndim - 1)
         return DNDarray(arr, tuple(arr.shape), self.__dtype, split, self.__device, self.__comm)
 
+    def __setitem__(self, key, value) -> None:
+        """Basic assignment with global semantics: integer, slice (any
+        step), ``Ellipsis``, ``None`` and scalar-bool keys; ``value`` (a
+        DNDarray, tensor, array or scalar) is cast to this array's type
+        and broadcast to the selection.  Array keys need the ring scatter
+        of ``parallel/take.py`` (ROADMAP queue A, item 6)."""
+        # one copy of the buffer, written through its true-shape view (the
+        # keys stay inside the true shape, so the pad stays zero); buffers
+        # are never written in place, as the reference's are immutable: other
+        # arrays and tensors taken from ``larray`` may share this one.
+        # torch slices step forward only: a backward slice becomes the
+        # forward slice over the same elements, the value flipped to match
+        buf = self.__array.clone()
+        split = self.__split
+        arr = buf if split is None else self.__comm.unpad(buf, self.__gshape[split], split)
+        tkey, flips, out_axis, in_axis = [], [], 0, 0
+        for k in _basic_key(key, self.ndim):
+            if _inserts(k):
+                tkey.append(k)
+                out_axis += 1
+                continue
+            n = self.__gshape[in_axis]
+            if isinstance(k, slice):
+                start, stop, step = k.indices(n)
+                if step < 0:
+                    count = len(range(start, stop, step))
+                    last = start + (count - 1) * step
+                    k = slice(last, start + 1, -step) if count else slice(0, 0)
+                    flips.append(out_axis)
+                tkey.append(k)
+                out_axis += 1
+            else:
+                k = int(k)
+                if not -n <= k < n:
+                    raise IndexError(f"index {k} is out of bounds for axis {in_axis} with size {n}")
+                tkey.append(k)
+            in_axis += 1
+        tkey = tuple(tkey)
+        if isinstance(value, DNDarray):
+            value = value.larray
+        elif not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value))
+        target = arr[tkey].shape
+        if value.ndim > len(target):
+            raise ValueError(
+                f"Cannot broadcast to shape with fewer dimensions: {tuple(value.shape)} to {tuple(target)}"
+            )
+        value = value.to(device=arr.device, dtype=arr.dtype).expand(target)
+        arr[tkey] = value.flip(flips) if flips else value
+        self.__array = buf
+        self._invalidate_halos()
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Set the main diagonal of a 2-D array to ``value``, in place."""
+        if self.ndim != 2:
+            raise ValueError("fill_diagonal requires a 2-D DNDarray")
+        buf = self.__array.clone()
+        idx = torch.arange(min(self.__gshape), device=buf.device)
+        buf[idx, idx] = torch.as_tensor(value, dtype=buf.dtype, device=buf.device)
+        self.__array = buf
+        self._invalidate_halos()
+        return self
+
+    # ------------------------------------------------------------------ #
+    # halos                                                               #
+    # ------------------------------------------------------------------ #
+    def get_halo(self, halo_size: int) -> None:
+        """Fetch every shard's neighbour strips along the split axis
+        (:func:`heat_tpu_torch.parallel.halo_exchange`): :attr:`halo_prev`
+        and :attr:`halo_next` become tensors laid out like the array with
+        ``halo_size`` rows per position along the split axis, the tail of
+        position i-1 and the head of position i+1, zeros past the global
+        edges (pad rows are zeros)."""
+        if not isinstance(halo_size, int):
+            raise TypeError(f"halo_size needs to be an integer, but was {type(halo_size)}")
+        if halo_size < 0:
+            raise ValueError(f"halo_size needs to be a non-negative integer, but was {halo_size}")
+        if self.__split is None or halo_size == 0:
+            self._invalidate_halos()
+            return
+        from ..parallel.primitives import halo_exchange
+
+        split = self.__split
+        prev, nxt = halo_exchange(self.__array.movedim(split, 0), halo_size, comm=self.__comm)
+        self.__halo_prev = prev.movedim(0, split)
+        self.__halo_next = nxt.movedim(0, split)
+        self.__halo_size = halo_size
+
+    def _invalidate_halos(self) -> None:
+        self.__halo_prev = None
+        self.__halo_next = None
+        self.__halo_size = 0
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        return self.__halo_prev
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        return self.__halo_next
+
+    @property
+    def array_with_halos(self) -> torch.Tensor:
+        """Every shard extended by its neighbour strips: along the split
+        axis, ``positions * (shard_width + 2 * halo_size)`` rows, position
+        p's block ``[prev strip | shard p (zero-padded) | next strip]``.
+        Without halos (or replicated) the true-shape global tensor."""
+        h = self.__halo_size
+        if self.__split is None or not h:
+            return self.larray
+        split, p = self.__split, self.__comm.size
+        blocks = self.__array.movedim(split, 0)
+        blocks = blocks.reshape((p, -1) + tuple(blocks.shape[1:]))
+        strip = lambda t: t.movedim(split, 0).reshape((p, h) + tuple(blocks.shape[2:]))  # noqa: E731
+        out = torch.cat([strip(self.__halo_prev), blocks, strip(self.__halo_next)], dim=1)
+        return out.reshape((-1,) + tuple(out.shape[2:])).movedim(0, split)
+
     @property
     def T(self) -> "DNDarray":
         """The array with its axes reversed."""
         return self.transpose()
-
-    def transpose(self, axes=None) -> "DNDarray":
-        """The array with its axes permuted (default: reversed)."""
-        from .linalg import basics
-
-        return basics.transpose(self, axes)
-
-    def __matmul__(self, other):
-        from .linalg import basics
-
-        return basics.matmul(self, other)
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
         """A copy laid out at ``axis`` (``None``: replicated)."""
@@ -275,8 +581,17 @@ class DNDarray:
             arr = arr.contiguous().clone()
         return DNDarray(arr, self.__gshape, self.__dtype, axis, self.__device, self.__comm)
 
+    def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
+        """Lay this array out at ``axis``, in place."""
+        from .stride_tricks import sanitize_axis
+
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis != self.__split:
+            self._rebind(self.resplit(axis))
+        return self
+
     # ------------------------------------------------------------------ #
-    # arithmetic and reductions                                           #
+    # operators and method forms: each calls its module function          #
     # ------------------------------------------------------------------ #
     def __add__(self, other):
         from . import arithmetics
@@ -287,6 +602,18 @@ class DNDarray:
         from . import arithmetics
 
         return arithmetics.add(other, self)
+
+    def __iadd__(self, other):
+        from . import arithmetics
+
+        res = arithmetics.add(self, other)
+        if tuple(res.shape) != self.__gshape:
+            raise ValueError(
+                f"non-broadcastable output operand with shape {self.__gshape} "
+                f"doesn't match the broadcast shape {tuple(res.shape)}"
+            )
+        self._rebind(res)
+        return self
 
     def __sub__(self, other):
         from . import arithmetics
@@ -318,6 +645,26 @@ class DNDarray:
 
         return arithmetics.div(other, self)
 
+    def __floordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(self, other)
+
+    def __rfloordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(other, self)
+
+    def __mod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(self, other)
+
+    def __rmod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(other, self)
+
     def __pow__(self, other):
         from . import arithmetics
 
@@ -332,6 +679,44 @@ class DNDarray:
         from . import arithmetics
 
         return arithmetics.neg(self)
+
+    def __pos__(self):
+        return self
+
+    def __abs__(self):
+        from . import rounding
+
+        return rounding.abs(self)
+
+    def __invert__(self):
+        from . import arithmetics
+
+        return arithmetics.invert(self)
+
+    def __lshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift(self, other)
+
+    def __rshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift(self, other)
+
+    def __and__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and(self, other)
+
+    def __or__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or(self, other)
+
+    def __xor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor(self, other)
 
     def __eq__(self, other):
         from . import relational
@@ -365,40 +750,279 @@ class DNDarray:
 
     __hash__ = None  # elementwise ==, as the reference
 
-    def sum(self, axis=None, out=None, keepdims=None):
+    def add(self, other):
         from . import arithmetics
 
-        return arithmetics.sum(self, axis=axis, out=out, keepdims=keepdims)
+        return arithmetics.add(self, other)
 
-    def mean(self, axis=None, keepdims=None):
-        from . import statistics
+    def sub(self, other):
+        from . import arithmetics
 
-        return statistics.mean(self, axis=axis, keepdims=keepdims)
+        return arithmetics.sub(self, other)
 
-    def var(self, axis=None, ddof: int = 0, **kwargs):
-        from . import statistics
+    def mul(self, other):
+        from . import arithmetics
 
-        return statistics.var(self, axis=axis, ddof=ddof, **kwargs)
+        return arithmetics.mul(self, other)
 
-    def std(self, axis=None, ddof: int = 0, **kwargs):
-        from . import statistics
+    def div(self, other):
+        from . import arithmetics
 
-        return statistics.std(self, axis=axis, ddof=ddof, **kwargs)
+        return arithmetics.div(self, other)
 
-    def min(self, axis=None, out=None, keepdims=None):
-        from . import statistics
+    def fmod(self, other):
+        from . import arithmetics
 
-        return statistics.min(self, axis=axis, out=out, keepdims=keepdims)
+        return arithmetics.fmod(self, other)
 
-    def max(self, axis=None, out=None, keepdims=None):
-        from . import statistics
+    def pow(self, other):
+        from . import arithmetics
 
-        return statistics.max(self, axis=axis, out=out, keepdims=keepdims)
+        return arithmetics.pow(self, other)
+
+    def prod(self, axis=None, out=None, keepdims=None, keepdim=None):
+        from . import arithmetics
+
+        return arithmetics.prod(self, axis, out, keepdims, keepdim)
+
+    def sum(self, axis=None, out=None, keepdims=None, keepdim=None):
+        from . import arithmetics
+
+        return arithmetics.sum(self, axis, out, keepdims, keepdim)
+
+    def cumsum(self, axis=0):
+        from . import arithmetics
+
+        return arithmetics.cumsum(self, axis)
+
+    def cumprod(self, axis=0):
+        from . import arithmetics
+
+        return arithmetics.cumprod(self, axis)
+
+    def exp(self, out=None):
+        from . import exponential
+
+        return exponential.exp(self, out)
+
+    def expm1(self, out=None):
+        from . import exponential
+
+        return exponential.expm1(self, out)
+
+    def exp2(self, out=None):
+        from . import exponential
+
+        return exponential.exp2(self, out)
+
+    def log(self, out=None):
+        from . import exponential
+
+        return exponential.log(self, out)
+
+    def log2(self, out=None):
+        from . import exponential
+
+        return exponential.log2(self, out)
+
+    def log10(self, out=None):
+        from . import exponential
+
+        return exponential.log10(self, out)
+
+    def log1p(self, out=None):
+        from . import exponential
+
+        return exponential.log1p(self, out)
+
+    def sqrt(self, out=None):
+        from . import exponential
+
+        return exponential.sqrt(self, out)
+
+    def sin(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.sin(self, out)
+
+    def cos(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.cos(self, out)
+
+    def tan(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tan(self, out)
+
+    def sinh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.sinh(self, out)
+
+    def cosh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.cosh(self, out)
+
+    def tanh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tanh(self, out)
+
+    def arcsin(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.arcsin(self, out)
+
+    def arccos(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.arccos(self, out)
+
+    def arctan(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.arctan(self, out)
+
+    def abs(self, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.abs(self, out, dtype)
+
+    def absolute(self, out=None, dtype=None):
+        return self.abs(out, dtype)
+
+    def fabs(self, out=None):
+        from . import rounding
+
+        return rounding.fabs(self, out)
+
+    def ceil(self, out=None):
+        from . import rounding
+
+        return rounding.ceil(self, out)
+
+    def floor(self, out=None):
+        from . import rounding
+
+        return rounding.floor(self, out)
+
+    def clip(self, a_min, a_max, out=None):
+        from . import rounding
+
+        return rounding.clip(self, a_min, a_max, out)
+
+    def modf(self, out=None):
+        from . import rounding
+
+        return rounding.modf(self, out)
+
+    def round(self, decimals=0, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.round(self, decimals, out, dtype)
+
+    def trunc(self, out=None):
+        from . import rounding
+
+        return rounding.trunc(self, out)
+
+    def all(self, axis=None, out=None, keepdims=None, keepdim=None):
+        from . import logical
+
+        return logical.all(self, axis, out, keepdims, keepdim)
+
+    def any(self, axis=None, out=None, keepdims=None, keepdim=None):
+        from . import logical
+
+        return logical.any(self, axis, out, keepdims, keepdim)
+
+    def allclose(self, other, rtol=1e-05, atol=1e-08, equal_nan=False):
+        from . import logical
+
+        return logical.allclose(self, other, rtol, atol, equal_nan)
+
+    def isclose(self, other, rtol=1e-05, atol=1e-08, equal_nan=False):
+        from . import logical
+
+        return logical.isclose(self, other, rtol, atol, equal_nan)
 
     def argmin(self, axis=None, out=None, keepdims=None):
         from . import statistics
 
         return statistics.argmin(self, axis=axis, out=out, keepdims=keepdims)
+
+    def max(self, axis=None, out=None, keepdims=None, keepdim=None):
+        from . import statistics
+
+        return statistics.max(self, axis, out, keepdims, keepdim)
+
+    def min(self, axis=None, out=None, keepdims=None, keepdim=None):
+        from . import statistics
+
+        return statistics.min(self, axis, out, keepdims, keepdim)
+
+    def mean(self, axis=None, keepdims=None, keepdim=None):
+        from . import statistics
+
+        return statistics.mean(self, axis, keepdims=keepdims, keepdim=keepdim)
+
+    def var(self, axis=None, ddof: int = 0, **kwargs):
+        from . import statistics
+
+        return statistics.var(self, axis, ddof=ddof, **kwargs)
+
+    def std(self, axis=None, ddof: int = 0, **kwargs):
+        from . import statistics
+
+        return statistics.std(self, axis, ddof=ddof, **kwargs)
+
+    def nonzero(self):
+        from . import indexing
+
+        return indexing.nonzero(self)
+
+    def transpose(self, axes=None) -> "DNDarray":
+        """The array with its axes permuted (default: reversed)."""
+        from .linalg import basics
+
+        return basics.transpose(self, axes)
+
+    def tril(self, k=0):
+        from .linalg import basics
+
+        return basics.tril(self, k)
+
+    def triu(self, k=0):
+        from .linalg import basics
+
+        return basics.triu(self, k)
+
+    def dot(self, other, out=None):
+        from .linalg import basics
+
+        return basics.dot(self, other, out=out)
+
+    def matmul(self, other, out=None, precision=None):
+        from .linalg import basics
+
+        return basics.matmul(self, other, out=out, precision=precision)
+
+    def __matmul__(self, other):
+        from .linalg import basics
+
+        return basics.matmul(self, other)
+
+    def qr(self, tiles_per_proc=1, calc_q=True, overwrite_a=False):
+        from .linalg.qr import qr
+
+        return qr(self, tiles_per_proc, calc_q, overwrite_a)
+
+    def norm(self):
+        from .linalg import basics
+
+        return basics.norm(self)
 
     def _rebind(self, other: "DNDarray") -> None:
         """Take over ``other``'s buffer, shape, type and layout (the
@@ -407,3 +1031,4 @@ class DNDarray:
         self.__gshape = other.gshape
         self.__dtype = other.dtype
         self.__split = other.split
+        self._invalidate_halos()

@@ -1,9 +1,23 @@
-"""Array constructors: ``array``, ``arange``, ``zeros``, ``ones``, ``full``.
+"""Array constructors: ``array``, ``asarray``, ``arange``, ``empty``,
+``zeros``, ``ones``, ``full``, their ``*_like`` forms, ``eye``,
+``linspace`` and ``logspace``.
 
 Port of ``heat_tpu/core/factories.py``.  Python scalars and lists default
 to 32-bit types (int32 / float32) unless their values need 64 bits; numpy
 arrays and tensors keep their dtype.  The data lands on the
-communicator's device.
+communicator's device.  ``order`` is validated and the buffer stays
+C-contiguous, as in the reference.
+
+``linspace`` evaluates the reference's formula in float64 (``start * (1 -
+i/d) + stop * i/d``, then ``stop``) as its compiled program does, fused
+multiply-adds included (:func:`_linspace_grid`), and rounds once into the
+target type: float32 grids are the reference's bit for bit, on the CPU
+and on the card, and float64 grids at all but a few points.
+``logspace`` raises ``base`` to that float32 grid in float64 and rounds
+once, which gives the correctly rounded float32 power unless the float64
+power lies within its own error of a float32 rounding tie (the
+reference's float32 ``pow`` is the host libm's ``powf``, one ulp off at
+about 1 point in 2 000).
 """
 
 from __future__ import annotations
@@ -16,9 +30,25 @@ import torch
 from . import devices, types
 from .communication import TorchCommunication, comm_for_device, get_comm, sanitize_comm
 from .dndarray import DNDarray
-from .sanitation import sanitize_axis
+from .memory import sanitize_memory_layout
+from .stride_tricks import sanitize_axis, sanitize_shape
 
-__all__ = ["arange", "array", "full", "ones", "zeros"]
+__all__ = [
+    "arange",
+    "array",
+    "asarray",
+    "empty",
+    "empty_like",
+    "eye",
+    "full",
+    "full_like",
+    "linspace",
+    "logspace",
+    "ones",
+    "ones_like",
+    "zeros",
+    "zeros_like",
+]
 
 
 def _setup(device, comm) -> Tuple[devices.Device, TorchCommunication]:
@@ -48,26 +78,12 @@ def _wrap(garr: torch.Tensor, dtype, split, device, comm) -> DNDarray:
     return DNDarray(garr, tuple(garr.shape), dtype, split, device, comm)
 
 
-def _host_dtype(obj, host: np.ndarray):
-    """32-bit default for python scalars and lists, unless the values
-    need 64 bits."""
-    if host.dtype == np.int64:
-        if host.size and (host.min() < -(2**31) or host.max() >= 2**31):
-            return types.int64
-        return types.int32
-    if host.dtype == np.float64:
-        finite = host[np.isfinite(host)]
-        if finite.size and np.max(np.abs(finite)) > np.finfo(np.float32).max:
-            return types.float64
-        return types.float32
-    return types.canonical_heat_type(host.dtype)
-
-
 def array(
     obj,
     dtype=None,
     copy: bool = True,
     ndmin: int = 0,
+    order: str = "C",
     split: Optional[int] = None,
     is_split: Optional[int] = None,
     device=None,
@@ -79,6 +95,7 @@ def array(
     if split is not None and is_split is not None:
         raise ValueError("split and is_split are mutually exclusive parameters")
     device, comm = _setup(device, comm)
+    sanitize_memory_layout(None, order)
     target = comm.device
 
     if is_split is not None:
@@ -100,19 +117,23 @@ def array(
         garr = obj
         inferred = types.canonical_heat_type(obj.dtype)
     elif isinstance(obj, np.ndarray):
-        host = np.ascontiguousarray(obj)
+        # np.ascontiguousarray would make a 0-d array 1-d
+        host = obj if obj.flags.c_contiguous else np.ascontiguousarray(obj)
         if not host.flags.writeable:
             host = host.copy()
         garr = torch.from_numpy(host)
         inferred = types.canonical_heat_type(obj.dtype)
     else:
         host = np.array(obj)
-        inferred = _host_dtype(obj, host)
+        inferred = types.canonical_heat_type(host.dtype)
+        if host.dtype in (np.int64, np.float64):
+            seq = obj if isinstance(obj, (list, tuple)) else [obj]
+            inferred = types._infer_list_type(seq, np.atleast_1d(host))
         garr = torch.from_numpy(host)
 
     dtype = inferred if dtype is None else types.canonical_heat_type(dtype)
     was = garr
-    garr = garr.to(device=target, dtype=dtype.torch_type())
+    garr = types._cast(garr.to(device=target), dtype.torch_type())
     if copy and garr.data_ptr() == was.data_ptr():
         garr = garr.clone()
     garr = garr.contiguous()
@@ -147,31 +168,186 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     return _wrap(garr, dtype, split, device, comm)
 
 
-def _sanitize_shape(shape) -> Tuple[int, ...]:
-    shape = (shape,) if isinstance(shape, (int, np.integer)) else tuple(shape)
-    if any(int(s) < 0 for s in shape):
-        raise ValueError(f"negative dimensions are not allowed: {shape}")
-    return tuple(int(s) for s in shape)
+def asarray(obj, dtype=None, order="C", is_split=None, device=None) -> DNDarray:
+    """``array`` without a copy: a DNDarray of the asked type comes back
+    as it is."""
+    sanitize_memory_layout(None, order)
+    if (
+        isinstance(obj, DNDarray)
+        and is_split is None
+        and (dtype is None or obj.dtype is types.canonical_heat_type(dtype))
+    ):
+        return obj
+    return array(obj, dtype=dtype, copy=False, is_split=is_split, device=device)
 
 
-def _factory(shape, fill, dtype, split, device, comm) -> DNDarray:
-    shape = _sanitize_shape(shape)
+def _factory(shape, fill, dtype, split, device, comm, order="C") -> DNDarray:
+    shape = sanitize_shape(shape)
     dtype = types.canonical_heat_type(dtype)
     device, comm = _setup(device, comm)
+    sanitize_memory_layout(None, order)
+    fill = types._cast_scalar(fill, dtype.torch_type())
     garr = torch.full(shape, fill, dtype=dtype.torch_type(), device=comm.device)
     return _wrap(garr, dtype, split, device, comm)
 
 
-def zeros(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def empty(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """An array of the shape; its values are zeros, as the reference's."""
+    return _factory(shape, 0, dtype, split, device, comm, order)
+
+
+def zeros(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Array of zeros."""
-    return _factory(shape, 0, dtype, split, device, comm)
+    return _factory(shape, 0, dtype, split, device, comm, order)
 
 
-def ones(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def ones(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Array of ones."""
-    return _factory(shape, 1, dtype, split, device, comm)
+    return _factory(shape, 1, dtype, split, device, comm, order)
 
 
-def full(shape, fill_value, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+def full(shape, fill_value, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
     """Constant-filled array."""
-    return _factory(shape, fill_value, dtype, split, device, comm)
+    return _factory(shape, fill_value, dtype, split, device, comm, order)
+
+
+def _factory_like(a, dtype, split, factory, device, comm, order="C", **kwargs) -> DNDarray:
+    """``factory`` at ``a``'s shape; type, split, device and communicator
+    default to ``a``'s when it is a DNDarray (the type to
+    ``heat_type_of(a)`` otherwise)."""
+    shape = a.shape if hasattr(a, "shape") else np.asarray(a).shape
+    if dtype is None:
+        dtype = a.dtype if isinstance(a, DNDarray) else types.heat_type_of(a)
+    if isinstance(a, DNDarray):
+        split = a.split if split is None else split
+        device = a.device if device is None else device
+        comm = a.comm if comm is None and devices.sanitize_device(device) is a.device else comm
+    return factory(shape, dtype=dtype, split=split, device=device, comm=comm, order=order, **kwargs)
+
+
+def empty_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """:func:`empty` at ``a``'s shape."""
+    return _factory_like(a, dtype, split, empty, device, comm, order)
+
+
+def zeros_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """:func:`zeros` at ``a``'s shape."""
+    return _factory_like(a, dtype, split, zeros, device, comm, order)
+
+
+def ones_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """:func:`ones` at ``a``'s shape."""
+    return _factory_like(a, dtype, split, ones, device, comm, order)
+
+
+def full_like(a, fill_value, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """:func:`full` at ``a``'s shape (float32 unless ``dtype`` says
+    otherwise, as the reference's)."""
+    return _factory_like(a, dtype, split, full, device, comm, order, fill_value=fill_value)
+
+
+def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """Ones on the main diagonal of an ``n x n`` (an int) or ``n x m``
+    matrix, zeros elsewhere."""
+    sanitize_memory_layout(None, order)
+    if isinstance(shape, (int, np.integer)):
+        gshape = (int(shape), int(shape))
+    else:
+        shape = sanitize_shape(shape)
+        gshape = (shape[0], shape[1] if len(shape) > 1 else shape[0])
+    dtype = types.canonical_heat_type(dtype)
+    device, comm = _setup(device, comm)
+    garr = torch.eye(gshape[0], gshape[1], dtype=dtype.torch_type(), device=comm.device)
+    return _wrap(garr, dtype, split, device, comm)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` in float64 with one rounding, from float64 operations
+    alone (Veltkamp's split, Dekker's product, Knuth's sum), so the CPU
+    and the card round alike."""
+    p = a * b
+
+    def split(x):
+        t = 134217729.0 * x  # 2**27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+
+    ah, al = split(a)
+    bh, bl = split(b if isinstance(b, torch.Tensor) else torch.full_like(a, b))
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    return s + (((p - (s - bb)) + (c - bb)) + e)
+
+
+#: the reference's compiled float64 grid: XLA folds ``i / d`` into ``i *
+#: fl(1/d)`` and ``stop * i/d`` into ``i * fl(stop/d)``; LLVM then
+#: contracts the final sum into an FMA and, in its vectorized loop (grids
+#: of more than this many steps, whole vectors of 16), ``1 - i * r`` too.
+#: Both matter: ``start * (1 - i/d) + stop * i/d`` rounded once to float32
+#: is one ulp off at a point of 5 of the 24 float32 grids of the tests;
+#: the final FMA alone gets those right, but float16 and int32 grids of
+#: 1 001 and 500 000 points and ~30 % of float64 points still differ
+_LINSPACE_UNROLLED, _LINSPACE_VECTOR = 172, 16
+
+
+def _linspace_grid(start: float, stop: float, div: int, device) -> torch.Tensor:
+    """``start * (1 - i/div) + stop * i/div`` for ``i < div``, in float64,
+    evaluated as the reference's compiled program evaluates it."""
+    i = torch.arange(div, dtype=torch.float64, device=device)
+    r = 1.0 / div
+    t = 1.0 - i * r
+    if div > _LINSPACE_UNROLLED:
+        body = div - div % _LINSPACE_VECTOR
+        t = torch.where(i < body, _fma(-i, r, 1.0), t)
+    return _fma(i, stop * r, start * t)
+
+
+def linspace(
+    start,
+    stop,
+    num: int = 50,
+    endpoint: bool = True,
+    retstep: bool = False,
+    dtype=None,
+    split=None,
+    device=None,
+    comm=None,
+):
+    """``num`` evenly spaced samples over ``[start, stop]`` (``[start,
+    stop)`` without the endpoint); with ``retstep``, also the spacing."""
+    num = int(num)
+    if num <= 0:
+        raise ValueError(f"number of samples 'num' must be non-negative, but was {num}")
+    device, comm = _setup(device, comm)
+    start_f, stop_f = float(start), float(stop)
+    step = (stop_f - start_f) / max(num - (1 if endpoint else 0), 1)
+    f64 = dict(dtype=torch.float64, device=comm.device)
+    if num > 1:
+        garr = _linspace_grid(start_f, stop_f, num - 1 if endpoint else num, comm.device)
+        if endpoint:
+            garr = torch.cat([garr, torch.full((1,), stop_f, **f64)])
+    else:
+        garr = torch.full((1,), start_f, **f64)
+    dtype = types.canonical_heat_type(dtype) if dtype is not None else types.float32
+    ht = _wrap(types._cast(garr, dtype.torch_type()), dtype, split, device, comm)
+    return (ht, step) if retstep else ht
+
+
+def logspace(
+    start,
+    stop,
+    num: int = 50,
+    endpoint: bool = True,
+    base: float = 10.0,
+    dtype=None,
+    split=None,
+    device=None,
+    comm=None,
+) -> DNDarray:
+    """``num`` samples ``base ** linspace(start, stop, num)``: float32
+    unless ``dtype`` says otherwise."""
+    y = linspace(start, stop, num=num, endpoint=endpoint, split=split, device=device, comm=comm)
+    garr = torch.pow(float(base), y.larray.to(torch.float64)).to(torch.float32)
+    result = DNDarray(garr, y.gshape, types.float32, y.split, y.device, y.comm)
+    return result if dtype is None else result.astype(types.canonical_heat_type(dtype))

@@ -1,0 +1,27 @@
+"""Memory layout helpers.
+
+Port of ``heat_tpu/core/memory.py``: ``copy`` and
+``sanitize_memory_layout``.  As in the reference, the order flag is
+validated and the buffer keeps its C-contiguous layout for both orders.
+"""
+
+from __future__ import annotations
+
+__all__ = ["copy", "sanitize_memory_layout"]
+
+
+def copy(x):
+    """An independent copy of a DNDarray: its at-rest buffer cloned."""
+    from .dndarray import DNDarray
+
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
+    return DNDarray(x._buffer.clone(), x.gshape, x.dtype, x.split, x.device, x.comm)
+
+
+def sanitize_memory_layout(x, order: str = "C"):
+    """Validate a memory-order flag (``"C"`` or ``"F"``) and return ``x``
+    unchanged."""
+    if order not in ("C", "F"):
+        raise ValueError(f"invalid memory layout {order!r}, expected 'C' or 'F'")
+    return x

@@ -22,6 +22,7 @@ from ..core.dndarray import DNDarray
 __all__ = [
     "all_to_all_resplit",
     "halo_exchange",
+    "local_scan",
     "prefix_scan",
     "prefix_sum",
     "ring_map",
@@ -120,6 +121,33 @@ _SCAN_OPS = {
     "sum": (torch.cumsum, 0, torch.sum),
     "prod": (torch.cumprod, 1, torch.prod),
 }
+#: rows of a block of :func:`local_scan`.  torch's CUDA scan along an outer
+#: axis gives each column one thread: 32 columns of 500 000 rows took 182
+#: ms on an H100 (80GB HBM3, 700 W); in blocks of 64 rows 0.227 ms, of
+#: 1 024 rows 0.607 ms (``scripts/scan_variants.py``)
+SCAN_BLOCK = 64
+
+
+def local_scan(arr: torch.Tensor, op: str = "sum", axis: int = 0) -> torch.Tensor:
+    """Cumulative ``op`` of a tensor along ``axis``.  An axis longer than
+    two blocks runs as a two-level scan: each block of ``SCAN_BLOCK`` rows
+    (the tail padded with the op's identity) scans on its own, then each
+    block combines the scanned totals of the blocks before it.  The
+    result has torch's type for the op (int64 for integer inputs)."""
+    cum, ident, _ = _SCAN_OPS[op]
+    n = int(arr.shape[axis])
+    if n <= 2 * SCAN_BLOCK:
+        return cum(arr, dim=axis)
+    x = arr.movedim(axis, 0)
+    nb = -(-n // SCAN_BLOCK)
+    if nb * SCAN_BLOCK != n:
+        pad = torch.full((nb * SCAN_BLOCK - n,) + tuple(x.shape[1:]), ident, dtype=x.dtype, device=x.device)
+        x = torch.cat([x, pad])
+    local = cum(x.reshape((nb, SCAN_BLOCK) + tuple(x.shape[1:])), dim=1)
+    before = local_scan(local[:, -1], op, 0)
+    before = torch.cat([torch.full_like(before[:1], ident), before[:-1]])[:, None]
+    out = (local + before) if op == "sum" else (local * before)
+    return out.reshape((-1,) + tuple(out.shape[2:]))[:n].movedim(0, axis)
 
 
 def prefix_scan(x, op: str = "sum", comm: Optional[TorchCommunication] = None, axis: int = 0):
@@ -133,7 +161,7 @@ def prefix_scan(x, op: str = "sum", comm: Optional[TorchCommunication] = None, a
     arr, comm = _unpack(x, comm)
     size = comm.size
     if size == 1 or arr.shape[axis] == 0:
-        return cum(arr, dim=axis)
+        return local_scan(arr, op, axis)
     if axis != 0:
         arr = arr.movedim(axis, 0)
     n = int(arr.shape[0])
@@ -141,7 +169,7 @@ def prefix_scan(x, op: str = "sum", comm: Optional[TorchCommunication] = None, a
     if ident != 0 and padded.shape[0] != n:
         padded = padded.clone()
         padded[n:] = ident
-    local = cum(_stacked(padded, size), dim=1)
+    local = local_scan(_stacked(padded, size), op, 1)
     totals = local[:, -1]  # (p, ...)
     before = torch.arange(size, device=arr.device)
     mask = (before[None, :] < before[:, None]).reshape((size, size) + (1,) * (totals.ndim - 1))

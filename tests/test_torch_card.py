@@ -547,3 +547,108 @@ def test_int64_matmul_2048_on_card_under_budget(cuda_device):
     assert extra <= basics.INT_MATMUL_BUDGET + n * n * 8, extra
     want = (a.astype(np.float64) @ b.astype(np.float64)).astype(np.int64)
     np.testing.assert_array_equal(z.numpy(), want)
+
+
+# --------------------------------------------------------------------- #
+# the array API's foundation on the card                                  #
+# --------------------------------------------------------------------- #
+def _card_and_cpu(cuda_device, positions: int = 1):
+    return (htt.TorchCommunication([cuda_device] * positions), htt.TorchCommunication(["cpu"] * positions))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int32", "int64", "int8", "uint8"])
+def test_integer_division_by_zero_gives_numpys_values_on_card(cuda_device, dtype):
+    """torch on CUDA returns its own values for a zero divisor (the CPU
+    raises); the port masks them to numpy's."""
+    num = np.array([7, -7, 5, 0, 1, -100, 3, 9], np.int64)
+    den = np.array([0, 2, -3, 0, 0, 0, 1, -2], np.int64)
+    if dtype == "uint8":
+        num, den = np.abs(num), np.abs(den)
+    num, den = num.astype(dtype), den.astype(dtype)
+    card, _ = _card_and_cpu(cuda_device, 4)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for name, fn in (("floordiv", np.floor_divide), ("mod", np.remainder), ("fmod", np.fmod)):
+            got = getattr(htt, name)(htt.array(num, split=0, comm=card), htt.array(den, split=0, comm=card))
+            assert got.larray.is_cuda and got.dtype.__name__ == dtype
+            np.testing.assert_array_equal(got.numpy(), fn(num, den), err_msg=name)
+            by_zero = getattr(htt, name)(htt.array(num, comm=card), 0).numpy()
+            np.testing.assert_array_equal(by_zero, fn(num, 0 * num))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_float_division_by_zero_gives_numpys_values_on_card(cuda_device, dtype):
+    num = np.array([1.5, -2.5, 0.0, np.nan, np.inf, -np.inf, 3.0, -0.0], dtype)
+    den = np.array([0.0, 0.0, 0.0, 0.0, 0.0, -0.0, -0.0, 0.0], dtype)
+    card, _ = _card_and_cpu(cuda_device)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for name, fn in (("floordiv", np.floor_divide), ("mod", np.remainder), ("fmod", np.fmod)):
+            got = getattr(htt, name)(htt.array(num, comm=card), htt.array(den, comm=card)).numpy()
+            np.testing.assert_array_equal(got, fn(num, den), err_msg=name)
+            assert (np.signbit(got) == np.signbit(fn(num, den)))[~np.isnan(got)].all(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int32", "int64", "int8", "uint8", "int16"])
+def test_shifts_past_the_width_on_card_equal_the_cpu(cuda_device, dtype):
+    """Counts outside [0, width) give 0 (left) and the sign fill (right)
+    on the card as on the CPU, whatever the device's shift does."""
+    bits = np.iinfo(dtype).bits
+    rng = np.random.default_rng(40)
+    a = rng.integers(0 if dtype == "uint8" else -100, 100, size=64).astype(dtype)
+    counts = np.resize(np.array([0, 1, bits - 1, bits, bits + 1, 40, 2 * bits, 100, -1, -bits]), 64)
+    counts = counts.astype(dtype) if dtype != "uint8" else np.abs(counts).astype(dtype)
+    card, cpu = _card_and_cpu(cuda_device)
+    for fn in ("left_shift", "right_shift"):
+        got = getattr(htt, fn)(htt.array(a, comm=card), htt.array(counts, comm=card)).numpy()
+        want = getattr(htt, fn)(htt.array(a, comm=cpu), htt.array(counts, comm=cpu)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=fn)
+        out_of_range = (counts.astype(np.int64) >= bits) | (counts.astype(np.int64) < 0)
+        fill = 0 if fn == "left_shift" else np.where(a < 0, -1, 0)
+        np.testing.assert_array_equal(got[out_of_range], np.broadcast_to(fill, a.shape)[out_of_range])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("args", [(0.1, 7.3, 11), (-3, 2, 500_000), (5, -5, 1001), (-7, 3, 174),
+                                  (17.5, -2.25, 173)])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "float16"])
+def test_linspace_and_logspace_on_card_equal_the_cpu(cuda_device, args, dtype):
+    """The float64 grid (with its emulated FMAs) rounds alike on the card
+    and the CPU, so linspace is bitwise the CPU's (and through it the
+    reference's); logspace's float64 power may differ from the CPU's in
+    its last float64 bit, which moves the float32 rounding at no point of
+    these grids."""
+    card, cpu = _card_and_cpu(cuda_device)
+    kw = {"dtype": getattr(htt, dtype)}
+    for endpoint in (True, False):
+        got = htt.linspace(*args, endpoint=endpoint, comm=card, **kw)
+        want = htt.linspace(*args, endpoint=endpoint, comm=cpu, **kw)
+        assert got.larray.is_cuda
+        assert torch.equal(got.larray.cpu(), want.larray)
+    lg = htt.logspace(*args, comm=card).larray.cpu()
+    assert torch.equal(lg, htt.logspace(*args, comm=cpu).larray)
+
+
+@pytest.mark.gpu
+def test_float16_rounds_once_on_the_card(cuda_device):
+    """float64 data and Python floats reach float16 on the card rounded
+    once, as numpy rounds them: values just off a float16 tie, where
+    rounding through float32 first lands on the tie."""
+    base = np.array([1.0, 2.0, -3.0, 1000.0, 6.1e-5, 3e-7, -0.5, 60000.0], np.float16)
+    half = np.spacing(np.abs(base)).astype(np.float64) / 2
+    b = base.astype(np.float64)
+    nudge = np.maximum(np.abs(b), 2.0 ** -24) * 2.0 ** -40
+    x = np.concatenate([b + np.sign(b) * (half + nudge), b + np.sign(b) * (half - nudge)])
+    want = x.astype(np.float16)
+    assert not np.array_equal(x.astype(np.float32).astype(np.float16), want)
+    card = htt.TorchCommunication([cuda_device] * 4)
+    got = htt.array(x, split=0, comm=card).astype(htt.float16)
+    assert got.larray.is_cuda
+    np.testing.assert_array_equal(got.numpy().view(np.int16), want.view(np.int16))
+    got = htt.array(x, dtype=htt.float16, split=0, comm=card).numpy()
+    np.testing.assert_array_equal(got.view(np.int16), want.view(np.int16))
+    zeros = htt.zeros((3,), dtype=htt.float16, comm=card)
+    for v, w in zip(x.tolist(), want):
+        for t in (htt.full((3,), v, dtype=htt.float16, comm=card), zeros + v, v - zeros):
+            np.testing.assert_array_equal(t.numpy().view(np.int16), np.full(3, w).view(np.int16))

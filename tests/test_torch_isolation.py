@@ -50,7 +50,12 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.core.random", "heat_tpu_torch.graph.laplacian",
         "heat_tpu_torch.cluster.spectral", "heat_tpu_torch.cluster.kmedians",
         "heat_tpu_torch.cluster.kmedoids", "heat_tpu_torch.naive_bayes.gaussianNB",
-        "heat_tpu_torch.classification.knn",
+        "heat_tpu_torch.classification.knn", "heat_tpu_torch.core.constants",
+        "heat_tpu_torch.core.stride_tricks", "heat_tpu_torch.core.memory",
+        "heat_tpu_torch.core.indexing", "heat_tpu_torch.core.printing",
+        "heat_tpu_torch.core.arithmetics", "heat_tpu_torch.core.factories",
+        "heat_tpu_torch.core.types", "heat_tpu_torch.core.sanitation",
+        "heat_tpu_torch.core.communication", "heat_tpu_torch.core.dndarray",
     ]
     proc = _run(
         "import importlib, sys\n"
