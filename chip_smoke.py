@@ -109,6 +109,31 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    and ``str`` bitwise the port's CPU results; division by zero and
    shifts past the width numpy's values.  Each operation prints its wall
    time and the device time of one call (``torch.profiler``).
+10. sort, take, manipulations and the rest of statistics on the blobs at
+   1 and FOUR positions, bitwise numpy's unless stated: at FOUR positions
+   ``sort(X, axis=0)`` both ways (the resplit sort), the 1-D ring rank
+   sort of a column and of one with +-0.0 and NaN written in, the narrow
+   ring on two columns, each also bitwise one stable ``torch.sort`` of the
+   same keys (timed beside it), and the local sort's two layouts timed;
+   ``percentile(X, [5, 25, 50, 75, 95], axis=0)``, ``median`` and the
+   global median of a column within 1 ulp of float32 of numpy's float64;
+   ``unique`` of phase 3's labels with its inverse, of the rows of the
+   sign pattern (int8, 32 columns: the lexsort) and of three of them side
+   by side (96 columns: the hash; equal to the port's CPU result, to
+   numpy's as a set of rows, and with ``sorted=True`` to numpy's);
+   ``topk`` along both axes, ties lowest index first; ``X[perm]`` and
+   ``Y[perm] = X`` (the ring take/put, ``perm`` the port's ``randperm``;
+   the take beside ``index_select``), a mask key, out-of-range array keys
+   clamped and dropped; ``resplit`` and back, ``reshape``, ``flatten``,
+   ``concatenate``, ``pad``, ``flip``, ``rot90``, ``repeat``, ``stack``,
+   ``diag`` of a 20 000^2 array; ``argmax``, ``maximum``/``minimum``,
+   ``bincount``, ``cov`` within ``gamma_n sum|x_i||x_j| / (n - 1)`` of
+   float64, ``histogram`` equal to the port's CPU result, ``kurtosis`` and
+   ``skew`` within 1e-4 of scipy's, ``average`` weighted and exact within
+   gamma_n bounds; at FOUR positions ``average(X, axis=0)`` under
+   ``int8_block`` within phase 4's ring bound and bitwise the unfused
+   ring, its launches set to 0 before and read after: exactly 1 quantize,
+   3 hops, 1 dequantize.  Each operation prints its wall and device time.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -1753,6 +1778,292 @@ def phase_array_api(torch, htt, cq, dev, data, counted):
     return launches, metrics
 
 
+# --------------------------------------------------------------------- #
+# sort, take, manipulations and the rest of statistics (phase 10)         #
+# --------------------------------------------------------------------- #
+def ulps32(got: np.ndarray, want64: np.ndarray) -> float:
+    """Largest distance, in float32 ulps, of float32 ``got`` from float64
+    ``want64`` rounded to float32 (ordered-integer distance of the bits)."""
+    def ordered(a):
+        i = a.astype(np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return float(np.abs(ordered(got) - ordered(want64.astype(np.float32))).max())
+
+
+def graph_ms(torch, metrics: dict, key: str, fn) -> float:
+    """Device time of one call of ``fn`` from CUDA events around replays
+    of a CUDA graph of 8 calls (:func:`device_ms`), recorded as
+    ``{key}_graph_ms``: the profiler's per-call reading drops some calls'
+    kernels (it read 0.000 ms for ``index_select`` on an H100)."""
+    ms = device_ms(fn, [()], per_graph=8, trials=5)
+    metrics[f"{key}_graph_ms"] = ms
+    print(f"  {key}: {ms:.4f} ms of device time (CUDA graph)")
+    return ms
+
+
+def routed(take) -> dict:
+    """Count the calls of ``take.ring_take`` and ``take.ring_put`` from
+    now on, in the returned dict."""
+    calls = {"ring_take": 0, "ring_put": 0}
+    for name in calls:
+        fn = getattr(take, name)
+        fn = getattr(fn, "__wrapped__", fn)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        counted.__wrapped__ = fn
+        setattr(take, name, counted)
+    return calls
+
+
+def unique_rows(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a, axis=0)`` of a matrix of 0/1 bytes, sorted as bytes
+    (the same order for these values) in a fraction of numpy's time."""
+    v = np.ascontiguousarray(a).view(np.dtype((np.void, a.shape[1] * a.itemsize)))[:, 0]
+    return np.unique(v).view(a.dtype).reshape(-1, a.shape[1])
+
+
+def phase_sort_stats(torch, htt, cq, dev, data, labels, counted):
+    """Phase 10: the distributed sort, ring take/put and array keys,
+    manipulations and the rest of statistics on the blobs at 1 and
+    POSITIONS positions, each held to numpy (bitwise unless a tolerance is
+    stated), the ring sort and ring take beside their single library
+    call; ``average`` under ``int8_block`` with exact launch counts.
+    Returns the int8 launches and the metrics."""
+    import scipy.stats
+
+    from heat_tpu_torch.core import dndarray
+    from heat_tpu_torch.parallel import take
+
+    metrics = {}
+    d64 = data.astype(np.float64)
+    launches = None
+    q = [5.0, 25.0, 50.0, 75.0, 95.0]
+    # numpy's results, computed once for both position counts
+    order = {desc: np.argsort(-data if desc else data, axis=0, kind="stable") for desc in (False, True)}
+    top = {dim: np.take(np.argsort(-data, axis=dim, kind="stable"), np.arange(k), axis=dim)
+           for dim, k in ((0, 8), (1, 5))}
+    signs = (data > 0).astype(np.int8)
+    wide = np.concatenate([signs] * 3, axis=1)
+    ref = {
+        "percentile": np.percentile(d64, q, axis=0), "median": np.median(d64, axis=0),
+        "global": np.percentile(d64[:, 0], 50.0), "unique": np.unique(labels, return_inverse=True),
+        "rows": unique_rows(signs), "wide": unique_rows(wide), "cov": np.cov(d64, rowvar=False),
+        "kurtosis": scipy.stats.kurtosis(d64, axis=0, bias=False), "skew": scipy.stats.skew(d64, axis=0, bias=False),
+    }
+    absx = np.abs(d64 - d64.mean(0))
+    cov_bound = gamma(N) * (absx.T @ absx) / (N - 1) + gamma(N) * np.abs(ref["cov"])
+    del absx
+    for p in (1, POSITIONS):
+        comm, cpu = htt.TorchCommunication([dev] * p), htt.TorchCommunication(["cpu"] * p)
+        print(f"phase 10 at {p} position(s):")
+        X = htt.array(data, split=0, comm=comm)
+        tag = f"p{p}"
+
+        # ---- sorting: the resplit sort, the 1-D ring, the narrow ring
+        if p == POSITIONS:
+            for desc in (False, True):
+                want_i = order[desc]
+                v, i = timed(torch, metrics, f"{tag}_sort_axis0{'_desc' if desc else ''}",
+                             lambda: htt.sort(X, axis=0, descending=desc))
+                exact(i.numpy(), want_i.astype(np.int32), f"sort axis 0 (descending={desc}) indices")
+                exact(v.numpy(), np.take_along_axis(data, want_i, 0), f"sort axis 0 (descending={desc}) values")
+                keys = -X.larray if desc else X.larray
+                ref_i = torch.sort(keys, dim=0, stable=True)[1]
+                check(bool(torch.equal(i.larray.to(torch.int64), ref_i)), "sort axis 0: not torch.sort's order")
+            timed(torch, metrics, f"{tag}_sort_axis0_torch_sort", lambda: torch.sort(X.larray, dim=0, stable=True))
+            graph_ms(torch, metrics, f"{tag}_sort_axis0", lambda: htt.sort(X, axis=0))
+            graph_ms(torch, metrics, f"{tag}_sort_axis0_torch_sort", lambda: torch.sort(X.larray, dim=0, stable=True))
+            # the local sorts' two layouts: each position's (n, F/p) column
+            # block sorted along dim 1, or its transposed copy along the last
+            blk = X.larray.reshape(N, p, F // p).permute(1, 0, 2)
+            for name, fn in (("sort_layout_columns", lambda: torch.sort(blk, dim=1, stable=True)),
+                             ("sort_layout_transposed",
+                              lambda: torch.sort(blk.transpose(1, 2).contiguous(), dim=-1, stable=True))):
+                timed(torch, metrics, name, fn)
+                graph_ms(torch, metrics, name, fn)
+            col = data[:, 1].copy()
+            col[::97], col[1::97], col[2::1001] = 0.0, -0.0, np.nan
+            for name, x in (("ring_sort", data[:, 0]), ("ring_sort_zeros_nan", col)):
+                C = htt.array(x, split=0, comm=comm)
+                for desc in (False, True):
+                    key = -x if desc else x
+                    want_i = np.argsort(key, kind="stable")
+                    v, i = timed(torch, metrics, f"{tag}_{name}{'_desc' if desc else ''}",
+                                 lambda: htt.sort(C, descending=desc))
+                    exact(i.numpy(), want_i.astype(np.int32), f"{name} (descending={desc}) indices")
+                    exact(v.numpy(), x[want_i], f"{name} (descending={desc}) values")
+                    keys = -C.larray if desc else C.larray
+                    check(bool(torch.equal(i.larray.to(torch.int64), torch.sort(keys, stable=True)[1])),
+                          f"{name}: not torch.sort's order")
+                timed(torch, metrics, f"{tag}_{name}_torch_sort", lambda: torch.sort(C.larray, stable=True))
+                graph_ms(torch, metrics, f"{tag}_{name}", lambda: htt.sort(C))
+                graph_ms(torch, metrics, f"{tag}_{name}_torch_sort", lambda: torch.sort(C.larray, stable=True))
+            X2 = htt.array(data[:, :2], split=0, comm=comm)
+            v, i = timed(torch, metrics, f"{tag}_narrow_ring_sort", lambda: htt.sort(X2, axis=0))
+            want_i = np.argsort(data[:, :2], axis=0, kind="stable")
+            exact(i.numpy(), want_i.astype(np.int32), "narrow ring sort indices")
+            check(bool(torch.equal(i.larray.to(torch.int64), torch.sort(X2.larray, dim=0, stable=True)[1])),
+                  "narrow ring sort: not torch.sort's order")
+            timed(torch, metrics, f"{tag}_narrow_ring_sort_torch_sort",
+                  lambda: torch.sort(X2.larray, dim=0, stable=True))
+            graph_ms(torch, metrics, f"{tag}_narrow_ring_sort", lambda: htt.sort(X2, axis=0))
+            graph_ms(torch, metrics, f"{tag}_narrow_ring_sort_torch_sort",
+                     lambda: torch.sort(X2.larray, dim=0, stable=True))
+            del v, i, blk, X2, C
+
+        # ---- quantiles: within 1 ulp of float32 of numpy's float64
+        got = timed(torch, metrics, f"{tag}_percentile_axis0", lambda: htt.percentile(X, q, axis=0))
+        check(ulps32(got.numpy(), ref["percentile"]) <= 1, f"percentile axis 0 at {p}")
+        got = timed(torch, metrics, f"{tag}_median_axis0", lambda: htt.median(X, axis=0))
+        check(ulps32(got.numpy(), ref["median"]) <= 1, f"median axis 0 at {p}")
+        X0 = X[:, 0]
+        got = timed(torch, metrics, f"{tag}_percentile_global", lambda: htt.percentile(X0, 50.0))
+        check(ulps32(got.numpy(), ref["global"]) <= 1, f"global percentile at {p}")
+
+        # ---- unique and topk
+        L = htt.array(labels, split=0, comm=comm)
+        u, inv = timed(torch, metrics, f"{tag}_unique_labels", lambda: htt.unique(L, return_inverse=True))
+        nu, ninv = ref["unique"]
+        exact(u.numpy().astype(np.int64), nu, f"unique labels at {p}")
+        exact(inv.numpy(), ninv.astype(np.int64), f"unique labels' inverse at {p}")
+        B = htt.array(signs, split=0, comm=comm)
+        u = timed(torch, metrics, f"{tag}_unique_rows", lambda: htt.unique(B, axis=0))
+        exact(u.numpy(), ref["rows"], f"unique rows at {p}")
+        B3 = htt.concatenate([B, B, B], axis=1)
+        u = timed(torch, metrics, f"{tag}_unique_rows_hashed", lambda: htt.unique(B3, axis=0))
+        if p == POSITIONS:
+            on_cpu = htt.unique(htt.array(wide, split=0, comm=cpu), axis=0)
+            exact(u.numpy(), on_cpu.numpy(), "hashed unique: not the port's CPU result")
+        want = ref["wide"]
+        check(u.shape == want.shape and {r.tobytes() for r in u.numpy()} == {r.tobytes() for r in want},
+              f"hashed unique at {p}: not numpy's rows")
+        exact(htt.unique(B3, sorted=True, axis=0).numpy(), want, f"hashed unique sorted=True at {p}")
+        for dim, k in ((0, 8), (1, 5)):
+            v, i = timed(torch, metrics, f"{tag}_topk_dim{dim}", lambda: htt.topk(X, k, dim=dim))
+            want_i = top[dim]
+            exact(i.numpy(), want_i.astype(np.int64), f"topk dim {dim} at {p}")
+            exact(v.numpy(), np.take_along_axis(data, want_i, dim), f"topk values dim {dim} at {p}")
+        del L, u, inv, B, B3
+
+        # ---- array keys: the ring take/put at p positions (16 M elements)
+        perm_t = htt.random.randperm(N, comm=comm)
+        perm = perm_t.numpy()
+        if p == POSITIONS:  # 16 M elements at several positions: the ring's
+            check(X.size >= dndarray._RING_INDEX_MIN, "X[perm] would not take the ring")
+            ring = routed(take)
+            X[perm_t]
+            check(ring == {"ring_take": 1, "ring_put": 0}, f"X[perm] took {ring}, not the ring take")
+        g = timed(torch, metrics, f"{tag}_take_perm", lambda: X[perm_t])
+        exact(g.numpy(), data[perm], f"X[perm] at {p}")
+        check(bool(torch.equal(g.larray, torch.index_select(X.larray, 0, perm_t.larray))),
+              f"X[perm] != index_select at {p}")
+        timed(torch, metrics, f"{tag}_take_perm_index_select", lambda: torch.index_select(X.larray, 0, perm_t.larray))
+        graph_ms(torch, metrics, f"{tag}_take_perm", lambda: X[perm_t])
+        graph_ms(torch, metrics, f"{tag}_take_perm_index_select",
+                 lambda: torch.index_select(X.larray, 0, perm_t.larray))
+        Y = htt.zeros((N, F), split=0, comm=comm)
+
+        def put():
+            Y[perm_t] = X
+
+        if p == POSITIONS:
+            ring = routed(take)
+            put()
+            check(ring == {"ring_take": 0, "ring_put": 1}, f"Y[perm] = X took {ring}, not the ring put")
+        timed(torch, metrics, f"{tag}_put_perm", put)
+        graph_ms(torch, metrics, f"{tag}_put_perm", put)
+        graph_ms(torch, metrics, f"{tag}_put_perm_index_copy",
+                 lambda: torch.zeros_like(X.larray).index_copy_(0, perm_t.larray, X.larray))
+        want = np.zeros_like(data)
+        want[perm] = data
+        exact(Y.numpy(), want, f"Y[perm] = X at {p}")
+        m = timed(torch, metrics, f"{tag}_mask", lambda: X[X[:, 0] > 0])
+        exact(m.numpy(), data[data[:, 0] > 0], f"X[mask] at {p}")
+        oob = np.array([N + 5, -N - 3, 7, -1], np.int64)
+        exact(X[oob].numpy(), data[[N - 1, 0, 7, N - 1]], f"out-of-range array key clamps at {p}")
+        Y[np.array([N + 10, -N - 10])] = 1.0  # out of range: dropped, no device assert
+        exact(Y.numpy(), want, f"out-of-range array key drops at {p}")
+        del g, Y, m, want
+
+        # ---- manipulations, bitwise numpy's
+        r1 = timed(torch, metrics, f"{tag}_resplit", lambda: htt.resplit(htt.resplit(X, 1), 0))
+        exact(r1.numpy(), data, f"resplit and back at {p}")
+        checks = (
+            ("reshape", lambda: htt.reshape(X, (N // 2, 2 * F), new_split=0), data.reshape(N // 2, 2 * F)),
+            ("flatten", lambda: htt.flatten(X), data.reshape(-1)),
+            ("concatenate", lambda: htt.concatenate([X, X]), np.concatenate([data, data])),
+            ("pad", lambda: htt.pad(X, ((1, 2), (0, 3))), np.pad(data, ((1, 2), (0, 3)))),
+            ("flip", lambda: htt.flip(X, 0), data[::-1]),
+            ("rot90", lambda: htt.rot90(X), np.rot90(data)),
+            ("repeat", lambda: htt.repeat(X, 2, axis=0), np.repeat(data, 2, axis=0)),
+            ("stack", lambda: htt.stack([X, X]), np.stack([data, data])),
+        )
+        for name, fn, want in checks:
+            exact(timed(torch, metrics, f"{tag}_{name}", fn).numpy(), want, f"{name} at {p}")
+        A = htt.random.randn(EYE_N, EYE_N, split=0, comm=comm)
+        dg = timed(torch, metrics, f"{tag}_diag", lambda: htt.diag(A))
+        idx = np.arange(EYE_N)
+        exact(dg.numpy(), A[idx, idx].numpy(), f"diag of {EYE_N}^2 at {p}")
+        del r1, A, dg
+
+        # ---- statistics
+        a = timed(torch, metrics, f"{tag}_argmax", lambda: htt.argmax(X, axis=0))
+        exact(a.numpy(), np.argmax(data, axis=0).astype(np.int64), f"argmax at {p}")
+        Xf = htt.flip(X, 0)
+        exact(htt.maximum(X, Xf).numpy(), np.maximum(data, data[::-1]), f"maximum at {p}")
+        exact(htt.minimum(X, Xf).numpy(), np.minimum(data, data[::-1]), f"minimum at {p}")
+        L = htt.array(labels, split=0, comm=comm)
+        bc = timed(torch, metrics, f"{tag}_bincount", lambda: htt.bincount(L))
+        exact(bc.numpy(), np.bincount(labels).astype(np.int64), f"bincount at {p}")
+        c = timed(torch, metrics, f"{tag}_cov", lambda: htt.cov(X, rowvar=False))
+        check(bool((np.abs(c.numpy() - ref["cov"]) <= cov_bound).all()),
+              f"cov at {p}: outside gamma_n sum|x_i||x_j|/(n-1)")
+        h, edges = timed(torch, metrics, f"{tag}_histogram", lambda: htt.histogram(X0, bins=100))
+        hc, ec = htt.histogram(htt.array(data[:, 0], split=0, comm=cpu), bins=100)
+        exact(h.numpy(), hc.numpy(), f"histogram counts at {p}: not the port's CPU result")
+        exact(edges.numpy(), ec.numpy(), f"histogram edges at {p}: not the port's CPU result")
+        check(int(h.numpy().sum()) == N, "histogram: counts do not sum to N")
+        for name, fn in (("kurtosis", htt.kurtosis), ("skew", htt.skew)):
+            got = timed(torch, metrics, f"{tag}_{name}", lambda: fn(X, 0)).numpy()
+            want = ref[name]
+            check(bool((np.abs(got - want) <= 1e-4 * np.abs(want)).all()), f"{name} at {p}: not within 1e-4 of scipy")
+        w = np.random.default_rng(3).random(N).astype(np.float32)
+        W = htt.array(w, split=0, comm=comm)
+        got = timed(torch, metrics, f"{tag}_average_weighted", lambda: htt.average(X, axis=0, weights=W)).numpy()
+        w64 = w.astype(np.float64)
+        want = (d64 * w64[:, None]).sum(0) / w64.sum()
+        bound = 3 * gamma(N) * (np.abs(d64) * w64[:, None]).sum(0) / w64.sum()
+        check(bool((np.abs(got - want) <= bound).all()), f"weighted average at {p}")
+        got = timed(torch, metrics, f"{tag}_average", lambda: htt.average(X, axis=0)).numpy()
+        check(bool((np.abs(got - d64.mean(0)) <= 2 * gamma(N) * np.abs(d64).mean(0)).all()), f"average at {p}")
+        if p == POSITIONS:
+            with cq.collective_precision("int8_block"):
+                for fn in counted:
+                    fn.launches = 0
+                got = htt.average(X, axis=0)
+                torch.cuda.synchronize()
+                launches = {f"blockquant_{fn.__name__.removesuffix('_blocks')}": fn.launches for fn in counted}
+                timed(torch, metrics, "p4_average_int8", lambda: htt.average(X, axis=0))
+            expected = {"blockquant_quantize": 1, "blockquant_dequantize": 1,
+                        "blockquant_dequantize_fma": 0, "blockquant_dequantize_add_quantize": POSITIONS - 1}
+            check(launches == expected, f"phase 10 int8 average launches {launches} != {expected}")
+            parts = d64.reshape(POSITIONS, N // POSITIONS, F).sum(1)
+            m_bound = POSITIONS * float(np.abs(parts).max(axis=1).sum()) / 254.0 / N
+            m_err = float(np.abs(got.numpy() - d64.mean(0)).max())
+            check(m_err <= m_bound, f"int8 average error {m_err} outside the ring bound {m_bound}")
+            partials = comm.blocks(X._buffer, 0).sum(dim=1)
+            unfused = ring_unfused(torch, cq, partials.reshape(POSITIONS, -1), POSITIONS) / float(N)
+            check(bitwise_equal(got.larray, unfused.reshape(F)), "int8 average != the unfused ring, bitwise")
+            metrics["p4_average_int8_err"], metrics["p4_average_int8_bound"] = m_err, m_bound
+            print(f"  int8_block average: launches {launches}; error {m_err:.4g} (bound {m_bound:.4g}), "
+                  "bitwise the unfused ring")
+        del X, X0, Xf, W, L
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -1933,6 +2244,13 @@ def run(dev, out_path=None) -> int:
     for row in kernel_rows:
         row["launches_by_phase"]["9"] = api_launches[row["name"]]
         row["launches"] += api_launches[row["name"]]
+    # ---------------------------------------------------------------- 10
+    t10 = time.perf_counter()
+    sort_launches, sort_metrics = phase_sort_stats(torch, htt, cq, dev, data, labels1, counted)
+    sort_metrics["phase10_s"] = time.perf_counter() - t10
+    for row in kernel_rows:
+        row["launches_by_phase"]["10"] = sort_launches[row["name"]]
+        row["launches"] += sort_launches[row["name"]]
     kernel_rows += attn_rows
 
     metrics = {
@@ -1949,6 +2267,7 @@ def run(dev, out_path=None) -> int:
         **kc_metrics,
         **est_metrics,
         **api_metrics,
+        **sort_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

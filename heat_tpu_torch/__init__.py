@@ -2,7 +2,8 @@
 
 The analytics path of the JAX package on PyTorch: split DNDarrays over a
 communicator's positions, factories, the threefry RNG, the op engine and
-elementwise maps, mean/var/std, distances, linear algebra (matmul, QR,
+elementwise maps, statistics and order statistics, manipulations
+(sort, unique, topk, reshape, ...), array keys, distances, linear algebra (matmul, QR,
 SVD, cg, lanczos), graph Laplacians, the estimators (KMeans, KMedians,
 KMedoids, Spectral, Lasso, GaussianNB, KNN), with the block-scaled int8
 collectives as hand-written CUDA
@@ -33,3 +34,4 @@ from . import regression  # noqa: E402
 from . import spatial  # noqa: E402
 from . import parallel  # noqa: E402
 from . import interop  # noqa: E402
+from . import utils  # noqa: E402

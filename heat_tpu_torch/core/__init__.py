@@ -27,11 +27,15 @@ from . import rounding
 from .rounding import *  # noqa: F401,F403
 from . import statistics
 from .statistics import *  # noqa: F401,F403
+from . import manipulations
+from .manipulations import *  # noqa: F401,F403
 from . import indexing
 from .indexing import *  # noqa: F401,F403
 from . import printing
 from .printing import get_printoptions, set_printoptions
 from .base import *  # noqa: F401,F403
 from . import random
+from . import tiling
+from .tiling import *  # noqa: F401,F403
 from . import linalg
 from .linalg import *  # noqa: F401,F403

@@ -24,6 +24,7 @@ view) keeps its values, as the reference's immutable arrays do.
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Optional, Tuple
 
@@ -37,12 +38,11 @@ from .devices import Device
 __all__ = ["DNDarray", "LocalIndex"]
 
 
-def _array_key_error(k) -> NotImplementedError:
-    return NotImplementedError(
-        f"DNDarray indexing with {type(k).__name__} keys needs the ring gather "
-        "of parallel/take.py (ROADMAP queue A, item 6); integers, slices, "
-        "Ellipsis, None and scalar bools are supported"
-    )
+#: Minimum element count of the operand before an array key along the split
+#: axis takes the ring gather/scatter (:mod:`heat_tpu_torch.parallel.take`)
+#: instead of one global index op; small operands keep the plain path.
+#: Override with HEAT_TPU_RING_INDEX_MIN.
+_RING_INDEX_MIN = int(os.environ.get("HEAT_TPU_RING_INDEX_MIN", str(1 << 22)))
 
 
 def _inserts(k) -> bool:
@@ -50,14 +50,15 @@ def _inserts(k) -> bool:
     return k is None or isinstance(k, (bool, np.bool_))
 
 
+def _is_basic(k) -> bool:
+    return k is None or k is Ellipsis or isinstance(k, (slice, int, np.integer, np.bool_))
+
+
 def _basic_key(key, ndim: int) -> list:
-    """``key`` as a list of basic index elements, one per axis of the
-    input and one per inserted axis, ``Ellipsis`` expanded; array keys
-    raise ``NotImplementedError``, too many indices ``IndexError``."""
+    """``key`` (basic elements only) as a list of basic index elements, one
+    per axis of the input and one per inserted axis, ``Ellipsis``
+    expanded; too many indices raise ``IndexError``."""
     keyt = key if isinstance(key, tuple) else (key,)
-    for k in keyt:
-        if not (k is None or k is Ellipsis or isinstance(k, (slice, int, np.integer, np.bool_))):
-            raise _array_key_error(k)
     used = sum(1 for k in keyt if not _inserts(k) and k is not Ellipsis)
     if used > ndim:
         raise IndexError(
@@ -420,14 +421,181 @@ class DNDarray:
         self._invalidate_halos()
         return self
 
+    # ------------------------------------------------------------------ #
+    # indexing                                                            #
+    # ------------------------------------------------------------------ #
+    def __process_key(self, key, scatter: bool = False):
+        """The key with DNDarray, list and numpy-array elements as tensors
+        on this array's device (lists are array keys), integer arrays
+        fitted to their axis with jax's semantics as indices torch takes
+        without raising (the reference's ``_fit_index_array``: negatives
+        wrap once, what is still out of range clamps for a gather and
+        becomes the sink one past the axis for a scatter; torch raises on
+        the CPU and asserts on the device), and Python integers
+        bounds-checked (out of range: ``IndexError``).  Returns ``(key,
+        dims)``: ``dims`` gives each element's input axis (None where it
+        consumes none or several)."""
+        from ..parallel.take import _sanitize_index
+
+        dev = self.__array.device
+
+        def pre(k):
+            if isinstance(k, DNDarray):
+                return k.larray
+            if isinstance(k, list):
+                return np.asarray(k)
+            return k
+
+        def consumed(k):
+            if _inserts(k):
+                return 0
+            if isinstance(k, (np.ndarray, torch.Tensor)) and k.dtype in (bool, np.bool_, torch.bool):
+                return k.ndim
+            return 1
+
+        def one(k, dim):
+            if isinstance(k, np.ndarray) and k.ndim == 0 and np.issubdtype(k.dtype, np.integer):
+                k = int(k)
+            if isinstance(k, (int, np.integer)) and not isinstance(k, (bool, np.bool_)):
+                if dim is not None and dim < self.ndim:
+                    n = self.__gshape[dim]
+                    if not -n <= k < n:
+                        raise IndexError(f"index {k} is out of bounds for axis {dim} with size {n}")
+                return int(k)
+            if isinstance(k, np.ndarray):
+                if k.size == 0:  # numpy: a[[]] selects nothing
+                    k = k.astype(np.int64)
+                k = torch.from_numpy(np.ascontiguousarray(k))
+            if isinstance(k, torch.Tensor):
+                k = k.to(dev)
+                if k.dtype != torch.bool and not k.dtype.is_floating_point and dim is not None and dim < self.ndim:
+                    k = _sanitize_index(k, self.__gshape[dim], clip=not scatter)
+            return k
+
+        keyt = tuple(pre(k) for k in (key if isinstance(key, tuple) else (key,)))
+        dims = []
+        if any(k is Ellipsis for k in keyt):
+            e = next(i for i, k in enumerate(keyt) if k is Ellipsis)
+            dim = 0
+            for k in keyt[:e]:
+                dims.append(dim if consumed(k) == 1 else None)
+                dim += consumed(k)
+            dims.append(None)
+            dim = self.ndim - sum(consumed(k) for k in keyt[e + 1:])
+            for k in keyt[e + 1:]:
+                dims.append(dim if consumed(k) == 1 else None)
+                dim += consumed(k)
+        else:
+            dim = 0
+            for k in keyt:
+                dims.append(dim if consumed(k) == 1 else None)
+                dim += consumed(k)
+        return tuple(one(k, d) for k, d in zip(keyt, dims)), dims
+
+    def __advanced_split(self, key: tuple, result_ndim: int) -> Optional[int]:
+        """Split of an array-key result: the nearest shardable axis, as the
+        reference's heuristic (a layout hint only: values never depend on
+        it)."""
+        if self.__split is None or result_ndim == 0:
+            return None
+        split, dim, dropped_before, split_key = self.__split, 0, 0, slice(None)
+        for k in key:
+            if k is Ellipsis:
+                return min(split, result_ndim - 1)
+            if k is None:
+                continue
+            if dim == split:
+                split_key = k
+                break
+            if isinstance(k, (int, np.integer)):
+                dropped_before += 1
+            dim += 1
+        if isinstance(split_key, (int, np.integer)):
+            return min(max(split - dropped_before, 0), result_ndim - 1)
+        return min(split - dropped_before, result_ndim - 1)
+
+    def __ring_index_plan(self, key: tuple) -> Optional[torch.Tensor]:
+        """The index tensor when the key is ONE 1-D integer array on the
+        split axis, every other axis untouched, of an array split over
+        several positions and at least ``_RING_INDEX_MIN`` elements: the
+        key the ring gather/scatter serves.  Else None."""
+        s = self.__split
+        if s is None or not self.is_distributed() or self.size < _RING_INDEX_MIN:
+            return None
+        if len(key) > self.ndim:
+            return None
+        idx = None
+        for d, k in enumerate(key):
+            if isinstance(k, slice):
+                if k != slice(None):
+                    return None
+            elif (isinstance(k, torch.Tensor) and k.ndim == 1 and k.shape[0] > 0
+                  and k.dtype != torch.bool and not k.dtype.is_floating_point):
+                if d != s or idx is not None:
+                    return None
+                idx = k
+            else:
+                return None
+        return idx
+
+    def __ring_getitem(self, idx: torch.Tensor) -> "DNDarray":
+        """Gather along the split axis through the ring
+        (:func:`heat_tpu_torch.parallel.take.ring_take`, clamping): the
+        at-rest buffer goes in, the result's at-rest buffer comes out."""
+        from ..parallel.take import ring_take
+
+        s, n, m = self.__split, self.__gshape[self.__split], int(idx.shape[0])
+        out = ring_take(self.__array.movedim(s, 0), idx, comm=self.__comm, n=n, padded_out=True, oob="clip")
+        gshape = self.__gshape[:s] + (m,) + self.__gshape[s + 1:]
+        return DNDarray(out.movedim(0, s).contiguous(), gshape, self.__dtype, s, self.__device, self.__comm)
+
+    def __ring_setitem(self, idx: torch.Tensor, value) -> None:
+        """Scatter along the split axis through the ring dual
+        (:func:`heat_tpu_torch.parallel.take.ring_put`): out-of-range
+        indices drop; the new buffer is built once from the old one."""
+        from ..parallel.take import ring_put
+
+        s, n, m = self.__split, self.__gshape[self.__split], int(idx.shape[0])
+        vshape = self.__gshape[:s] + (m,) + self.__gshape[s + 1:]
+        if (isinstance(value, DNDarray) and value.split == s and value.gshape == vshape
+                and value._buffer.dtype == self.__array.dtype):
+            value = value._buffer  # aligned at rest: pad rows are never written
+        else:
+            value = types._cast(self.__value_tensor(value), self.__array.dtype).expand(vshape)
+        out = ring_put(n, idx, value.movedim(s, 0), comm=self.__comm, base=self.__array.movedim(s, 0),
+                       padded_out=True)
+        self.__array = out.movedim(0, s).contiguous()
+        self._invalidate_halos()
+
+    def __value_tensor(self, value) -> torch.Tensor:
+        if isinstance(value, DNDarray):
+            value = value.larray
+        elif not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value))
+        return value.to(self.__array.device)
+
     def __getitem__(self, key) -> "DNDarray":
-        """Basic indexing with global semantics: integers, slices (any
-        step), ``Ellipsis``, ``None`` and scalar bools (which insert an
-        axis of length 1 for True, 0 for False, as ``None`` inserts one).
-        A slice keeps the split on its axis; an integer that consumes the
-        split axis hands it to the nearest remaining axis; a 0-d result is
-        replicated.  Array keys need the ring gather of
-        ``parallel/take.py`` (not ported yet)."""
+        """Indexing with global semantics.  Basic keys (integers, slices of
+        any step, ``Ellipsis``, ``None``, scalar bools, which insert an
+        axis of length 1 for True and 0 for False): a slice keeps the
+        split on its axis, an integer that consumes the split axis hands
+        it to the nearest remaining axis.  Array keys (integer or boolean
+        arrays, lists, DNDarrays) follow jax: an out-of-range integer
+        array clamps, a boolean mask gives a data-dependent length (one
+        host sync).  One integer array on the split axis of a large split
+        array takes the ring gather.  A 0-d result is replicated."""
+        keyt = key if isinstance(key, tuple) else (key,)
+        if all(_is_basic(k) for k in keyt):
+            return self.__basic_getitem(key)
+        tkey, _ = self.__process_key(key)
+        ridx = self.__ring_index_plan(tkey)
+        if ridx is not None:
+            return self.__ring_getitem(ridx)
+        result = self.larray[tkey]
+        split = self.__advanced_split(tkey, result.ndim)
+        return DNDarray(result, tuple(result.shape), self.__dtype, split, self.__device, self.__comm)
+
+    def __basic_getitem(self, key) -> "DNDarray":
         arr, out_axis, in_axis, split = self.larray, 0, 0, None
         for k in _basic_key(key, self.ndim):
             if _inserts(k):
@@ -453,11 +621,36 @@ class DNDarray:
         return DNDarray(arr, tuple(arr.shape), self.__dtype, split, self.__device, self.__comm)
 
     def __setitem__(self, key, value) -> None:
-        """Basic assignment with global semantics: integer, slice (any
-        step), ``Ellipsis``, ``None`` and scalar-bool keys; ``value`` (a
-        DNDarray, tensor, array or scalar) is cast to this array's type
-        and broadcast to the selection.  Array keys need the ring scatter
-        of ``parallel/take.py`` (ROADMAP queue A, item 6)."""
+        """Assignment with global semantics; ``value`` (a DNDarray, tensor,
+        array or scalar) is cast to this array's type and broadcast to the
+        selection.  Array keys follow jax: an out-of-range integer array
+        index drops its write, an out-of-range Python integer raises
+        ``IndexError``; duplicate destinations are unspecified.  One
+        integer array on the split axis of a large split array takes the
+        ring scatter."""
+        keyt = key if isinstance(key, tuple) else (key,)
+        if all(_is_basic(k) for k in keyt):
+            self.__basic_setitem(key, value)
+            return
+        tkey, dims = self.__process_key(key, scatter=True)
+        ridx = self.__ring_index_plan(tkey)
+        if ridx is not None:
+            self.__ring_setitem(ridx, value)
+            return
+        # a copy with one sink row on every axis an integer array indexes:
+        # dropped writes land there and are cut off
+        sinks = sorted({d for k, d in zip(tkey, dims) if d is not None and isinstance(k, torch.Tensor)
+                        and k.dtype != torch.bool})
+        arr = self.larray
+        work = arr.new_zeros(tuple(s + (d in sinks) for d, s in enumerate(arr.shape)))
+        view = work[tuple(slice(0, s) for s in arr.shape)]
+        view.copy_(arr)
+        value = types._cast(self.__value_tensor(value), arr.dtype)
+        work[tkey] = value
+        self.__array = self.__commit(view.contiguous() if sinks else work)
+        self._invalidate_halos()
+
+    def __basic_setitem(self, key, value) -> None:
         # one copy of the buffer, written through its true-shape view (the
         # keys stay inside the true shape, so the pad stays zero); buffers
         # are never written in place, as the reference's are immutable: other
@@ -977,6 +1170,83 @@ class DNDarray:
         from . import statistics
 
         return statistics.std(self, axis, ddof=ddof, **kwargs)
+
+    def argmax(self, axis=None, out=None, **kwargs):
+        from . import statistics
+
+        return statistics.argmax(self, axis, out, **kwargs)
+
+    def average(self, axis=None, weights=None, returned=False):
+        from . import statistics
+
+        return statistics.average(self, axis=axis, weights=weights, returned=returned)
+
+    def median(self, axis=None, keepdim=None, keepdims=None):
+        from . import statistics
+
+        return statistics.median(self, axis, keepdim, keepdims=keepdims)
+
+    def percentile(self, q, axis=None, out=None, interpolation="linear", keepdims=False):
+        from . import statistics
+
+        return statistics.percentile(self, q, axis, out, interpolation, keepdims)
+
+    def skew(self, axis=None, unbiased=True):
+        from . import statistics
+
+        return statistics.skew(self, axis, unbiased)
+
+    def kurtosis(self, axis=None, unbiased=True, Fischer=True):
+        from . import statistics
+
+        return statistics.kurtosis(self, axis, unbiased, Fischer)
+
+    def expand_dims(self, axis):
+        from . import manipulations
+
+        return manipulations.expand_dims(self, axis)
+
+    def flatten(self):
+        from . import manipulations
+
+        return manipulations.flatten(self)
+
+    def ravel(self):
+        from . import manipulations
+
+        return manipulations.flatten(self)
+
+    def reshape(self, *shape, **kwargs):
+        from . import manipulations
+
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return manipulations.reshape(self, shape, **kwargs)
+
+    def squeeze(self, axis=None):
+        from . import manipulations
+
+        return manipulations.squeeze(self, axis)
+
+    def unique(self, sorted=False, return_inverse=False, axis=None):
+        from . import manipulations
+
+        return manipulations.unique(self, sorted, return_inverse, axis)
+
+    def flip(self, axis=None):
+        from . import manipulations
+
+        return manipulations.flip(self, axis)
+
+    def sort(self, axis=-1, descending=False, out=None):
+        from . import manipulations
+
+        return manipulations.sort(self, axis, descending, out)
+
+    def repeat(self, repeats, axis=None):
+        from . import manipulations
+
+        return manipulations.repeat(self, repeats, axis)
 
     def nonzero(self):
         from . import indexing

@@ -289,18 +289,49 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
 #: the final FMA alone gets those right, but float16 and int32 grids of
 #: 1 001 and 500 000 points and ~30 % of float64 points still differ
 _LINSPACE_UNROLLED, _LINSPACE_VECTOR = 172, 16
+#: the same program computed in float32 (``jnp.linspace(..., dtype=float32)``,
+#: ``jnp.histogram``'s edges) runs vectors of 32 past 351 steps
+_LINSPACE32_UNROLLED, _LINSPACE32_VECTOR = 351, 32
+#: with bounds that are not compile-time constants (``jnp.histogram``'s
+#: edges), grids of at most this many steps contract the other product of
+#: the sum at ``i = 1``: ``fma(start, t, stop * r)``.  Bitwise, in float32
+#: and float64, at 300-400 random grids of 2 to 700 points against the
+#: reference's on the CPU
+_LINSPACE_TRACED_SMALL = 33
 
 
-def _linspace_grid(start: float, stop: float, div: int, device) -> torch.Tensor:
-    """``start * (1 - i/div) + stop * i/div`` for ``i < div``, in float64,
-    evaluated as the reference's compiled program evaluates it."""
+def _linspace_grid(start, stop, div: int, device, dtype=torch.float64, traced: bool = False) -> torch.Tensor:
+    """``start * (1 - i/div) + stop * i/div`` for ``i < div`` as the
+    reference's compiled program evaluates it in ``dtype``, returned in
+    float64.  ``start`` and ``stop`` are floats or 0-d tensors; ``traced``
+    bounds are not compile-time constants there.  A narrower ``dtype``
+    rounds each operation's float64 result to it (float64 carries twice
+    its digits and more, so each basic operation rounds as in ``dtype``
+    itself)."""
+    wide = dtype == torch.float64
+    rnd = (lambda t: t) if wide else (lambda t: t.to(dtype).to(torch.float64))  # noqa: E731
+    unrolled, vector = (_LINSPACE_UNROLLED, _LINSPACE_VECTOR) if wide else (_LINSPACE32_UNROLLED, _LINSPACE32_VECTOR)
     i = torch.arange(div, dtype=torch.float64, device=device)
-    r = 1.0 / div
-    t = 1.0 - i * r
-    if div > _LINSPACE_UNROLLED:
-        body = div - div % _LINSPACE_VECTOR
-        t = torch.where(i < body, _fma(-i, r, 1.0), t)
-    return _fma(i, stop * r, start * t)
+    r = rnd(torch.tensor(1.0 / div, dtype=torch.float64, device=device))
+    t = rnd(1.0 - rnd(i * r))
+    if div > unrolled:
+        body = div - div % vector
+        t = torch.where(i < body, rnd(_fma(-i, r, 1.0)), t)
+    sr, st = rnd(stop * r), rnd(start * t)
+    out = rnd(_fma(i, sr, st))
+    if traced and 1 < div <= _LINSPACE_TRACED_SMALL:
+        out[1] = rnd(_fma(torch.as_tensor(start, dtype=torch.float64).reshape(1), t[1:2], sr))[0]
+    return out
+
+
+def _linspace_tensor(start: torch.Tensor, stop: torch.Tensor, num: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num, dtype=dtype)`` for 0-d tensor
+    bounds, computed in ``dtype`` (what ``jnp.histogram``'s edges are)."""
+    start, stop = start.to(torch.float64), stop.to(torch.float64)
+    if num == 1:
+        return start.reshape(1).to(dtype)
+    grid = _linspace_grid(start, stop, num - 1, start.device, dtype, traced=True)
+    return torch.cat([grid, stop.reshape(1)]).to(dtype)
 
 
 def linspace(

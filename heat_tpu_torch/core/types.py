@@ -417,11 +417,15 @@ def _weak_result_type(*operands) -> type:
 
 
 def _cast(t: torch.Tensor, dtype: torch.dtype, **kwargs) -> torch.Tensor:
-    """``t.to(dtype, **kwargs)``, float64 to float16 rounded once, as the
-    reference rounds: torch converts through float32 and rounds twice
-    (``1 + 2^-11 + 2^-40`` becomes 1 where 1 + 2^-10 is nearest).  The
-    float32 step rounds to odd, which the second rounding cannot mistake
-    for a tie."""
+    """``t.to(dtype, **kwargs)`` with the reference's roundings: float64 to
+    float16 rounded once (torch converts through float32 and rounds twice:
+    ``1 + 2^-11 + 2^-40`` becomes 1 where 1 + 2^-10 is nearest; the float32
+    step rounds to odd, which the second rounding cannot mistake for a
+    tie), and a NaN into bfloat16 or float16 the reference's NaN on any
+    device: the quiet NaN of its sign in bfloat16, and in float16 the sign,
+    the quiet bit and the payload's top bits (torch gives bfloat16 0xFFFF
+    from float32, drops a float64 NaN's sign, and the card writes 0x7FFF)."""
+    src = t
     if t.dtype == torch.float64 and dtype == torch.float16:
         f = t.to(torch.float32)
         wide = f.to(torch.float64)
@@ -429,7 +433,18 @@ def _cast(t: torch.Tensor, dtype: torch.dtype, **kwargs) -> torch.Tensor:
         even = (f.view(torch.int32) & 1) == 0
         toward = torch.where(t > wide, torch.inf, -torch.inf).to(torch.float32)
         t = torch.where(inexact & even, torch.nextafter(f, toward), f)
-    return t.to(dtype, **kwargs)
+    out = t.to(dtype, **kwargs)
+    if dtype in (torch.float16, torch.bfloat16) and src.dtype in (torch.float32, torch.float64):
+        sign = torch.signbit(src).to(torch.int32) << 15
+        if dtype == torch.bfloat16:
+            bits = sign | 0x7FC0
+        else:
+            wide = src.view(torch.int64) if src.dtype == torch.float64 else src.view(torch.int32).to(torch.int64)
+            payload = (wide >> (42 if src.dtype == torch.float64 else 13)) & 0x1FF
+            bits = sign | 0x7E00 | payload.to(torch.int32)
+        bits = (bits - ((bits >> 15) << 16)).to(torch.int16).view(dtype)
+        out = torch.where(torch.isnan(src), bits, out)
+    return out
 
 
 def _cast_scalar(value, dtype: torch.dtype):

@@ -21,7 +21,11 @@ then the RNG's ``randperm(500000)``, a 300-step ``lanczos`` on the
 20 000-row Spectral Laplacian and the whole ``Spectral.fit`` around it
 (rbf, gamma 1e-3, 8 clusters), a 30-step ``KMedians.fit`` on the blobs at
 one position, and GaussianNB fits on the blobs, exact at one position and
-at four positions under ``int8_block``.  For each it prints the wall time, the summed
+at four positions under ``int8_block``; then, at four positions on the
+blobs, the distributed sorts (the 1-D ring rank sort of a column, the
+resplit sort along axis 0), the ring take ``X[perm]`` and the ring put
+``Y[perm] = X``, each beside its single library call (a stable
+``torch.sort``, ``index_select``, ``index_copy_``).  For each it prints the wall time, the summed
 device time of the kernels and their share of the wall time (the device's
 busy share), the host's waits on the device (synchronize calls of the
 CUDA runtime, and reads of a device scalar such as ``bool(t)``), and the
@@ -180,6 +184,24 @@ def main() -> int:
     with cq.collective_precision("int8_block"):
         rows.append(profile(torch, "GaussianNB fit int8_block, 4 positions",
                             lambda: htt.naive_bayes.GaussianNB().fit(X4, y4), top=10))
+    col = X4[:, 0]
+    perm = htt.random.randperm(cs.N, comm=comm4)
+    Y4 = htt.zeros((cs.N, cs.F), split=0, comm=comm4)
+
+    def put():
+        Y4[perm] = X4
+
+    for label, fn in (
+        ("ring rank sort, 500000 rows", lambda: htt.sort(col)),
+        ("  yardstick: torch.sort, stable", lambda: torch.sort(col.larray, stable=True)),
+        ("resplit sort axis 0, 500000 x 32", lambda: htt.sort(X4, axis=0)),
+        ("  yardstick: torch.sort dim 0, stable", lambda: torch.sort(X4.larray, dim=0, stable=True)),
+        ("ring take X[perm], 500000 x 32", lambda: X4[perm]),
+        ("  yardstick: index_select", lambda: torch.index_select(X4.larray, 0, perm.larray)),
+        ("ring put Y[perm] = X, 500000 x 32", put),
+        ("  yardstick: index_copy_", lambda: Y4.larray.clone().index_copy_(0, perm.larray, X4.larray)),
+    ):
+        rows.append(profile(torch, f"{label}, 4 positions", fn, top=6))
     card = cs.card_line()
     print(card)
     if args.out:

@@ -652,3 +652,128 @@ def test_float16_rounds_once_on_the_card(cuda_device):
     for v, w in zip(x.tolist(), want):
         for t in (htt.full((3,), v, dtype=htt.float16, comm=card), zeros + v, v - zeros):
             np.testing.assert_array_equal(t.numpy().view(np.int16), np.full(3, w).view(np.int16))
+
+
+# --------------------------------------------------------------------- #
+# slice 8: sort, take, array keys, unique, topk, histogram on the card    #
+# --------------------------------------------------------------------- #
+def _on(dev, p):
+    return htt.TorchCommunication([dev] * p), htt.TorchCommunication(["cpu"] * p)
+
+
+def _bits(t: np.ndarray) -> np.ndarray:
+    return t.view(f"u{t.itemsize}") if t.dtype.kind == "f" else t
+
+
+def _zeros_nan(n: int, dtype) -> np.ndarray:
+    x = np.random.default_rng(n).integers(-3, 4, size=n).astype(dtype)
+    x[::5], x[1::5], x[2::7] = 0.0, -0.0, np.nan
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(61,), (61, 2), (61, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "float16", "bfloat16"])
+def test_sort_nan_and_signed_zeros_on_card_bitwise_the_cpu(cuda_device, shape, dtype):
+    """The three routes (1-D ring, narrow ring, resplit) at 4 positions."""
+    x = _zeros_nan(int(np.prod(shape)), "float32").reshape(shape)
+    card, cpu = _on(cuda_device, 4)
+    kw = {"dtype": getattr(htt, dtype)}
+    t, c = htt.array(x, split=0, comm=card, **kw), htt.array(x, split=0, comm=cpu, **kw)
+    for desc in (False, True):
+        (tv, ti), (cv, ci) = htt.sort(t, axis=0, descending=desc), htt.sort(c, axis=0, descending=desc)
+        assert tv.larray.is_cuda
+        np.testing.assert_array_equal(ti.numpy(), ci.numpy())
+        np.testing.assert_array_equal(_bits(tv.numpy()), _bits(cv.numpy()))
+        if dtype == "float32":  # numpy's stable order, NaN last both ways
+            want = np.argsort(-x if desc else x, axis=0, kind="stable")
+            np.testing.assert_array_equal(ti.numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring", [False, True])
+def test_out_of_range_and_negative_array_keys_on_card(cuda_device, monkeypatch, ring):
+    """Clamped in a gather, dropped in a scatter, negatives wrapped, and no
+    device-side assert (a later kernel still runs)."""
+    from heat_tpu_torch.core import dndarray as dnd
+
+    monkeypatch.setattr(dnd, "_RING_INDEX_MIN", 0 if ring else 1 << 62)
+    x = np.arange(40 * 3, dtype=np.float32).reshape(40, 3)
+    card, _ = _on(cuda_device, 4)
+    t = htt.array(x, split=0, comm=card)
+    keys = np.array([45, -1, -40, -41, 2**40, 3], np.int64)
+    np.testing.assert_array_equal(t[keys].numpy(), x[[39, 39, 0, 0, 39, 3]])
+    np.testing.assert_array_equal(t[np.array([-128, 127, 5], np.int8)].numpy(), x[[0, 39, 5]])
+    t[np.array([44, -50, 7, -2], np.int64)] = -1.0
+    want = x.copy()
+    want[[7, 38]] = -1.0
+    np.testing.assert_array_equal(t.numpy(), want)
+    t[[0, 5], 1] = 9.0
+    want[[0, 5], 1] = 9.0
+    np.testing.assert_array_equal(t.numpy(), want)
+    torch.cuda.synchronize()
+    assert float((t.larray * 2).sum().item()) == float((want * 2).sum())
+
+
+@pytest.mark.gpu
+def test_topk_ties_on_card(cuda_device):
+    card, cpu = _on(cuda_device, 4)
+    x = np.array([[3, 1, 3, 2, 3, 1], [0, 0, 5, 5, -1, 5]] * 3, np.float32)
+    x[0, 1], x[1, 0], x[1, 1] = np.nan, -0.0, 0.0
+    for dim in (0, 1):
+        for largest in (True, False):
+            (tv, ti) = htt.topk(htt.array(x, split=0, comm=card), 3, dim=dim, largest=largest)
+            (cv, ci) = htt.topk(htt.array(x, split=0, comm=cpu), 3, dim=dim, largest=largest)
+            np.testing.assert_array_equal(ti.numpy(), ci.numpy())
+            np.testing.assert_array_equal(_bits(tv.numpy()), _bits(cv.numpy()))
+    assert htt.topk(htt.array([3, 1, 3, 2, 3, 1], comm=card), 3)[1].numpy().tolist() == [0, 2, 4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_histogram_edge_values_on_card(cuda_device, dtype):
+    """Values on the edges: the last edge in the last bin, each inner edge
+    in the bin it opens, NaN in none; counts and edges equal the CPU's."""
+    card, cpu = _on(cuda_device, 4)
+    x = np.concatenate([np.arange(-5, 6), np.linspace(-5, 5, 1001), [np.nan]]).astype(dtype)
+    for bins, rng in ((10, (-5, 5)), (7, None), (100, None)):
+        data = x if rng else x[:-1]  # the range of data with a NaN is NaN
+        h, e = htt.histogram(htt.array(data, split=0, comm=card), bins=bins, range=rng)
+        hc, ec = htt.histogram(htt.array(data, split=0, comm=cpu), bins=bins, range=rng)
+        np.testing.assert_array_equal(h.numpy(), hc.numpy())
+        np.testing.assert_array_equal(_bits(e.numpy()), _bits(ec.numpy()))
+    h, _ = htt.histogram(htt.array(x, split=0, comm=card), bins=10, range=(-5, 5))
+    assert h.numpy()[-1] == 2 + 101 and h.numpy().sum() == x.size - 1  # [4, 5], both ends in
+
+
+@pytest.mark.gpu
+def test_unique_row_hash_of_96_columns_on_card_bitwise_the_cpu(cuda_device):
+    from heat_tpu_torch.core import manipulations as manip
+
+    rng = np.random.default_rng(11)
+    base = (rng.normal(size=(40, 32)) > 0).astype(np.int8)
+    x = np.concatenate([base] * 3, axis=1)[rng.integers(0, 40, size=999)]
+    card, cpu = _on(cuda_device, 4)
+    words = manip._row_words(torch.from_numpy(x).to(cuda_device))
+    for seed in range(2):
+        for a, b in zip(manip._hash_rows(words, seed), manip._hash_rows(words.cpu(), seed)):
+            assert torch.equal(a.cpu(), b)
+    (tu, ti), (cu, ci) = (htt.unique(htt.array(x, split=0, comm=card), axis=0, return_inverse=True),
+                          htt.unique(htt.array(x, split=0, comm=cpu), axis=0, return_inverse=True))
+    np.testing.assert_array_equal(tu.numpy(), cu.numpy())
+    np.testing.assert_array_equal(ti.numpy(), ci.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src", ["float32", "float64"])
+def test_half_nan_converts_as_the_reference_on_card(cuda_device, src):
+    """The card's own conversion writes 0x7FFF for a NaN; the port writes
+    the reference's NaN, as on the CPU."""
+    payload = np.array([0x7F800001, 0xFFA00000, 0x7FC12345], np.uint32).view(np.float32)
+    x = np.concatenate([np.array([np.nan, -np.nan, 1.5], np.float32), payload]).astype(src)
+    card, cpu = _on(cuda_device, 1)
+    for half in (htt.bfloat16, htt.float16):
+        got = htt.array(x, dtype=half, comm=card).larray.view(torch.int16).cpu()
+        assert torch.equal(got, htt.array(x, dtype=half, comm=cpu).larray.view(torch.int16))
+    assert htt.array(x, dtype=htt.bfloat16, comm=card).larray.view(torch.int16).cpu().tolist()[:3] == [
+        0x7FC0, -0x40, 0x3FC0]

@@ -41,8 +41,6 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
     "communication": {"grid_comm": "A7/A9 (2-D grid of positions)", "init_multihost": "A3b"},
-    "statistics": {name: "A6" for name in ("argmax", "average", "bincount", "cov", "histc", "histogram",
-                                           "kurtosis", "maximum", "median", "minimum", "percentile", "skew")},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
@@ -55,7 +53,7 @@ PORTED_MODULES = [
     "constants", "stride_tricks", "types", "sanitation", "memory", "communication", "devices",
     "arithmetics", "factories", "indexing", "printing", "dndarray", "_operations", "base",
     "exponential", "logical", "relational", "rounding", "statistics", "trigonometrics", "random",
-    "linalg.basics", "linalg.qr", "linalg.svd", "linalg.solver",
+    "linalg.basics", "linalg.qr", "linalg.svd", "linalg.solver", "manipulations", "tiling",
 ]
 
 

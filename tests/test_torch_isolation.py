@@ -56,6 +56,9 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.core.arithmetics", "heat_tpu_torch.core.factories",
         "heat_tpu_torch.core.types", "heat_tpu_torch.core.sanitation",
         "heat_tpu_torch.core.communication", "heat_tpu_torch.core.dndarray",
+        "heat_tpu_torch.core.manipulations", "heat_tpu_torch.core.statistics",
+        "heat_tpu_torch.core.tiling", "heat_tpu_torch.parallel.sort", "heat_tpu_torch.parallel.take",
+        "heat_tpu_torch.utils", "heat_tpu_torch.utils.matrixgallery", "heat_tpu_torch.utils.profiler",
     ]
     proc = _run(
         "import importlib, sys\n"
