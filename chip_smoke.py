@@ -134,6 +134,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``int8_block`` within phase 4's ring bound and bitwise the unfused
    ring, its launches set to 0 before and read after: exactly 1 quantize,
    3 hops, 1 dequantize.  Each operation prints its wall and device time.
+11. the 2-D grid of positions at the reference benchmark's sizes, on
+   grids of 2 x 2 and 2 x 4 positions on the one card: the grid SUMMA of
+   two 1024 x 1024 float32 operands (seed 13, ``bench.py:1352-1357``) in
+   its three layouts, each within ``gamma_k |A||B|`` (k = 1024) of the
+   float64 product, at ``splits=(0, 1)``; the grid CAQR QR of 4096 x 512
+   (seed 29, ``bench.py:1487-1498``): ``||QR - A|| / ||A|| <= 1e-5``,
+   ``max|Q^T Q - I| <= 1e-4``, R's strict lower triangle exactly zero, Q
+   and R within 1e-4 of their largest entry of the port's CPU result on
+   the same input (cuSOLVER's Householder signs against LAPACK's); the
+   QDWH SVD of 1024 x 256 (the same draw): S within ``50 eps s_max`` of
+   numpy's float64 SVD, ``U S V^T - A`` within ``100 eps s_max``, U and V
+   orthonormal within ``200 eps`` (the reference's gates,
+   ``tests/test_linalg2d.py``), and its iteration count; the ``resplit``
+   round trip ``(0, 1) -> (None, 1) -> (1, 0) -> None`` bitwise; ``sum(0)``
+   of the blobs' first 10 007 x 31 values and ``prod(0)`` of ``1 + 1e-3
+   sin(100 x)`` of them at ``(0, 1)``: numpy's shapes, within ``gamma_n
+   sum|x|`` and ``gamma_n |prod|`` of float64.  Each call prints its wall
+   time, host syncs and device time (SUMMA: a CUDA graph; QR and SVD,
+   which synchronize, the profiler), beside ``torch.matmul``,
+   ``torch.linalg.qr`` and ``torch.linalg.svd`` of the same operands, and
+   ``summa2d_tflops`` (2mkn), ``qr2d_tflops`` (``2mn^2 - 2n^3/3``) and
+   ``svd2d_tflops`` (the reference's 12-iteration nominal,
+   ``bench.py:1491-1496``) over the wall time.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -227,6 +250,20 @@ KNN_K = 5
 U32 = 2.0 ** -24
 HALO = 2
 EYE_N = 20_000
+#: phase 11: the reference benchmark's grid headlines (bench.py:1317-1600):
+#: its 2 x 4 mesh and a 2 x 2 one, the SUMMA's square side, the grid QR's
+#: and the QDWH SVD's operands, and the ragged slice of the blobs
+GRID_MESHES = ((2, 2), (2, 4))
+SUMMA2D_N = 1024
+QR2D_M, QR2D_N = 4096, 512
+SVD2D_M, SVD2D_N = 1024, 256
+RAGGED_ROWS, RAGGED_COLS = 10_007, 31
+#: the grid QR's Q and R against the port's CPU result, as a share of each
+#: factor's largest entry (float32 roundings of one algorithm on two
+#: devices: 1e-6-ish; a flipped Householder sign moves a column by 2|q|)
+QR2D_CPU_TOL = 1e-4
+#: float32 eps, the unit of the reference's QDWH gates (50/100/200 eps)
+EPS32 = float(np.finfo(np.float32).eps)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1538,6 +1575,18 @@ def profiled_ms(torch, fn) -> float:
     """Device time of one call of ``fn``: the device-side events of a
     ``torch.profiler`` trace, summed (the aten ops that launched them
     report the same time again and are left out)."""
+    return _profiled(torch, fn)[0]
+
+
+def profile_counts(torch, fn):
+    """``(device ms, host synchronize calls)`` of one call of ``fn`` from a
+    ``torch.profiler`` trace, less the synchronize events of the trace's
+    own trailing fence (those an empty call shows)."""
+    ms, syncs = _profiled(torch, fn)
+    return ms, syncs - _profiled(torch, lambda: None)[1]
+
+
+def _profiled(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1546,13 +1595,17 @@ def profiled_ms(torch, fn) -> float:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, syncs = 0.0, 0
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or evt.key.startswith("Activity Buffer"):
+        if evt.device_type != DeviceType.CUDA:
+            if "Synchronize" in evt.key:
+                syncs += int(evt.count)
+            continue
+        if evt.key.startswith("Activity Buffer"):
             continue
         us = getattr(evt, "self_device_time_total", None)
         total += float(us if us is not None else getattr(evt, "self_cuda_time_total", 0.0))
-    return total / 1e3
+    return total / 1e3, syncs
 
 
 def timed(torch, metrics: dict, key: str, fn):
@@ -2064,6 +2117,154 @@ def phase_sort_stats(torch, htt, cq, dev, data, labels, counted):
     return launches, metrics
 
 
+# --------------------------------------------------------------------- #
+# the 2-D grid of positions (phase 11)                                   #
+# --------------------------------------------------------------------- #
+def grid_call(torch, metrics: dict, key: str, fn, graph: bool = False):
+    """Record ``fn``'s wall time (median of 3), host synchronize calls and
+    device time under ``key``: from a CUDA graph of 8 calls when ``graph``
+    (``{key}_graph_ms``), else from the profiler (``{key}_device_ms``).
+    Returns ``fn()`` and the wall time."""
+    out = fn()
+    wall = metrics[f"{key}_ms"] = wall_ms(fn, reps=3)
+    dev_ms, syncs = profile_counts(torch, fn)
+    metrics[f"{key}_syncs"] = syncs
+    if graph:
+        dev_ms = metrics[f"{key}_graph_ms"] = device_ms(fn, [()], per_graph=8, trials=5)
+        source = "CUDA graph"
+    else:
+        metrics[f"{key}_device_ms"] = dev_ms
+        source = "profiler"
+    print(f"  {key}: {wall:.3f} ms wall, {syncs} host syncs, {dev_ms:.3f} ms of device time ({source})")
+    return out, wall
+
+
+def phase_grid(torch, htt, dev, data):
+    """Phase 11: the grid of positions at the reference benchmark's sizes
+    on 2 x 2 and 2 x 4 grids; returns its metrics."""
+    import importlib
+
+    svd_mod = importlib.import_module("heat_tpu_torch.core.linalg.svd")
+    metrics = {}
+    rng = np.random.default_rng(13)
+    a = rng.normal(size=(SUMMA2D_N, SUMMA2D_N)).astype(np.float32)
+    b = rng.normal(size=(SUMMA2D_N, SUMMA2D_N)).astype(np.float32)
+    prod64 = a.astype(np.float64) @ b.astype(np.float64)
+    summa_bound = gamma(SUMMA2D_N) * (np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64))
+    rng = np.random.default_rng(29)
+    qa = rng.normal(size=(QR2D_M, QR2D_N)).astype(np.float32)
+    sa = rng.normal(size=(SVD2D_M, SVD2D_N)).astype(np.float32)
+    sm, sn = SVD2D_M, SVD2D_N
+    summa_flops = 2.0 * SUMMA2D_N ** 3
+    qr_flops = float(2 * QR2D_M * QR2D_N ** 2 - 2 * QR2D_N ** 3 // 3)
+    stacked_qr = 2 * (sm + sn) * sn * sn - 2 * sn ** 3 // 3
+    svd_flops = float(svd_mod._QDWH_MAXIT * (stacked_qr + 2 * (sm + sn) * sn * sn) + 4 * sm * sn * sn + 9 * sn ** 3)
+    s64 = np.linalg.svd(sa.astype(np.float64), compute_uv=False)
+    smax = float(s64[0])
+
+    # the single-call yardsticks, once: they do not depend on the grid
+    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    qt, st = torch.from_numpy(qa).to(dev), torch.from_numpy(sa).to(dev)
+    print("phase 11 yardsticks:")
+    grid_call(torch, metrics, "torch_matmul_1024", lambda: torch.matmul(at, bt), graph=True)
+    _, qr_wall = grid_call(torch, metrics, "torch_linalg_qr_4096x512", lambda: torch.linalg.qr(qt))
+    _, svd_wall = grid_call(torch, metrics, "torch_linalg_svd_1024x256",
+                            lambda: torch.linalg.svd(st, full_matrices=False))
+    metrics["torch_linalg_qr_tflops"] = qr_flops / qr_wall / 1e9
+    metrics["torch_linalg_svd_tflops"] = svd_flops / svd_wall / 1e9
+    metrics["torch_matmul_tflops"] = summa_flops / metrics["torch_matmul_1024_graph_ms"] / 1e9
+
+    for mesh in GRID_MESHES:
+        r, c = mesh
+        tag = f"{r}x{c}"
+        comm = htt.grid_comm(mesh, [dev] * (r * c))
+        cpu = htt.grid_comm(mesh, ["cpu"] * (r * c))
+        print(f"phase 11 on a {tag} grid of positions:")
+
+        # 1. the grid SUMMA in its three layouts
+        for layout, sa_, sb_ in (("grid", (0, 1), (0, 1)), ("rowcol", (0, None), (None, 1)),
+                                 ("colrow", (None, 1), (0, None))):
+            A = htt.array(a, splits=sa_, comm=comm)
+            B = htt.array(b, splits=sb_, comm=comm)
+            C, wall = grid_call(torch, metrics, f"summa2d_{layout}_{tag}", lambda: A @ B, graph=True)
+            check(C.splits == (0, 1) and C.shape == (SUMMA2D_N, SUMMA2D_N), f"summa2d {layout} layout")
+            got = C.numpy().astype(np.float64)
+            check(bool(np.isfinite(got).all()), f"summa2d {layout} at {tag}: non-finite")
+            err = np.abs(got - prod64)
+            check(bool((err <= summa_bound).all()), f"summa2d {layout} at {tag}: outside gamma_k |A||B|")
+            metrics[f"summa2d_{layout}_{tag}_err_share_of_bound"] = float((err / summa_bound).max())
+        metrics[f"summa2d_tflops_{tag}"] = summa_flops / metrics[f"summa2d_grid_{tag}_graph_ms"] / 1e9
+        print(f"  summa2d_tflops {metrics[f'summa2d_tflops_{tag}']:.2f} (device time), torch.matmul "
+              f"{metrics['torch_matmul_tflops']:.2f}")
+
+        # 2. the grid CAQR QR
+        QA = htt.array(qa, splits=(0, 1), comm=comm)
+        (q, rr), wall = grid_call(torch, metrics, f"qr2d_{tag}", lambda: htt.linalg.qr(QA))
+        check(q.splits == (0, 1) and rr.splits == (None, 1), f"qr2d layouts at {tag}")
+        qv, rv = q.numpy().astype(np.float64), rr.numpy().astype(np.float64)
+        resid = float(np.linalg.norm(qv @ rv - qa) / np.linalg.norm(qa))
+        orth = float(np.abs(qv.T @ qv - np.eye(QR2D_N)).max())
+        check(resid <= QR_TOL, f"qr2d at {tag}: ||QR - A|| / ||A|| = {resid:.3g}")
+        check(orth <= ORTH_TOL, f"qr2d at {tag}: max|Q^T Q - I| = {orth:.3g}")
+        check(not np.tril(rv, -1).any(), f"qr2d at {tag}: R not upper triangular")
+        qc, rc = htt.linalg.qr(htt.array(qa, splits=(0, 1), comm=cpu))
+        qc, rc = qc.numpy().astype(np.float64), rc.numpy().astype(np.float64)
+        signs = float((np.sign(np.diag(rv)) == np.sign(np.diag(rc))).mean())
+        dq = float(np.abs(qv - qc).max() / np.abs(qc).max())
+        dr = float(np.abs(rv - rc).max() / np.abs(rc).max())
+        metrics.update({f"qr2d_{tag}_residual": resid, f"qr2d_{tag}_orth": orth,
+                        f"qr2d_{tag}_sign_agreement": signs, f"qr2d_{tag}_q_vs_cpu": dq,
+                        f"qr2d_{tag}_r_vs_cpu": dr})
+        print(f"  qr2d: residual {resid:.3g}, orthogonality {orth:.3g}, R's diagonal signs as the CPU's "
+              f"at {signs:.4f} of columns; Q, R against the CPU {dq:.3g}, {dr:.3g} of their largest entry")
+        check(dq <= QR2D_CPU_TOL and dr <= QR2D_CPU_TOL, f"qr2d at {tag}: card and CPU factors differ")
+        metrics[f"qr2d_tflops_{tag}"] = qr_flops / wall / 1e9
+        del q, rr, qv, rv, qc, rc
+
+        # 3. the QDWH SVD
+        SA = htt.array(sa, splits=(0, 1), comm=comm)
+        res, wall = grid_call(torch, metrics, f"svd2d_{tag}", lambda: htt.linalg.svd(SA))
+        u, s, v = (x.numpy().astype(np.float64) for x in res)
+        check(res.U.splits == (0, 1) and res.S.splits == (None,) and res.V.splits == (None, None),
+              f"svd2d layouts at {tag}")
+        iters = svd_mod._grid_svd_parts(SA, htt.float32)[3]
+        s_err = float(np.abs(s - s64).max()) / (EPS32 * smax)
+        rec = float(np.abs(u @ np.diag(s) @ v.T - sa).max()) / (EPS32 * smax)
+        orth = max(float(np.abs(u.T @ u - np.eye(sn)).max()), float(np.abs(v.T @ v - np.eye(sn)).max())) / EPS32
+        metrics.update({f"svd2d_{tag}_iterations": iters, f"svd2d_{tag}_s_err_eps": s_err,
+                        f"svd2d_{tag}_reconstruction_eps": rec, f"svd2d_{tag}_orth_eps": orth,
+                        f"svd2d_tflops_{tag}": svd_flops / wall / 1e9})
+        print(f"  svd2d: {iters} QDWH iterations; S {s_err:.2f} eps s_max from numpy's, reconstruction "
+              f"{rec:.2f} eps s_max, orthogonality {orth:.2f} eps (gates 50, 100, 200)")
+        check(s_err <= 50 and rec <= 100 and orth <= 200, f"svd2d at {tag}: outside the reference's gates")
+        print(f"  qr2d_tflops {metrics[f'qr2d_tflops_{tag}']:.3f} (torch.linalg.qr "
+              f"{metrics['torch_linalg_qr_tflops']:.3f}), svd2d_tflops {metrics[f'svd2d_tflops_{tag}']:.3f} "
+              f"(torch.linalg.svd {metrics['torch_linalg_svd_tflops']:.3f}), over wall time")
+        del res, u, s, v
+
+        # 4. layouts and the reference's reduce fault
+        x = QA
+        for dst, want in (((None, 1), (None, 1)), ((1, 0), (1, 0)), (None, (None, None))):
+            x = x.resplit(dst)
+            check(x.splits == want, f"resplit to {dst} at {tag}: {x.splits}")
+            exact(x.numpy(), qa, f"resplit round trip to {dst} at {tag}")
+        part = np.ascontiguousarray(data[:RAGGED_ROWS, :RAGGED_COLS])
+        n = RAGGED_ROWS
+        bounded = (1.0 + np.float32(1e-3) * np.sin(np.float32(100.0) * part)).astype(np.float32)
+        for what, vals, op in (("sum", part, np.sum), ("prod", bounded, np.prod)):
+            X = htt.array(vals, splits=(0, 1), comm=comm)
+            got = getattr(X, what)(0)
+            check(got.shape == (RAGGED_COLS,) and got.splits == (None,), f"{what}(0) at {tag}: {got.shape}")
+            want = op(vals.astype(np.float64), axis=0)
+            scale = np.sum(np.abs(vals.astype(np.float64)), 0) if what == "sum" else np.abs(want)
+            err = np.abs(got.numpy().astype(np.float64) - want)
+            check(bool((err <= (gamma(n - 1) + n * 2.0 ** -52) * scale).all()),
+                  f"{what}(0) at {tag}: outside gamma_n bound")
+        print(f"  resplit round trip bitwise; sum(0), prod(0) of {RAGGED_ROWS} x {RAGGED_COLS}: numpy's "
+              f"shapes, within gamma_n")
+    return metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -2252,6 +2453,10 @@ def run(dev, out_path=None) -> int:
         row["launches_by_phase"]["10"] = sort_launches[row["name"]]
         row["launches"] += sort_launches[row["name"]]
     kernel_rows += attn_rows
+    # ---------------------------------------------------------------- 11
+    t11 = time.perf_counter()
+    grid_metrics = phase_grid(torch, htt, dev, data)
+    grid_metrics["phase11_s"] = time.perf_counter() - t11
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -2268,6 +2473,7 @@ def run(dev, out_path=None) -> int:
         **est_metrics,
         **api_metrics,
         **sort_metrics,
+        **grid_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

@@ -1,16 +1,18 @@
 """Wire-cost arithmetic of the compressed collectives (stdlib only).
 
-The port's own copy of the three pieces of ``heat_tpu/comm/_costs.py`` the
-collective-precision policy needs: :data:`BLOCK`, :func:`resolve_mode` and
-:func:`ring_wire_model`.  Kept verbatim in meaning so a payload resolves to
-the same wire mode, and a ring to the same byte count, in both packages.
+The port's own copy of the pieces of ``heat_tpu/comm/_costs.py`` the
+collective-precision policy and the grid QR need: :data:`BLOCK`,
+:func:`resolve_mode`, :func:`ring_wire_model` and
+:func:`grid_panel_bounds`.  Kept verbatim in meaning so a payload resolves
+to the same wire mode, a ring to the same byte count, and a grid QR to the
+same panels in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
-__all__ = ["BLOCK", "resolve_mode", "ring_wire_model"]
+__all__ = ["BLOCK", "grid_panel_bounds", "resolve_mode", "ring_wire_model"]
 
 #: Quantization block length: one f32 scale per this many payload values.
 #: One block is one warp-row of the Hopper kernels (32 lanes x 4 values).
@@ -72,3 +74,24 @@ def ring_wire_model(n_elems: int, size: int, mode: Optional[str], *,
         "wire_bytes": wire,
         "bytes_ratio": round(wire / exact, 4) if exact else None,
     }
+
+
+def grid_panel_bounds(n: int, c: int, tiles_per_proc: int = 1) -> Tuple[Tuple[int, int, int], ...]:
+    """The column-panel schedule of the grid blocked QR: one ``(owner mesh
+    column, local column offset, width)`` triple per panel.  Columns lie in
+    chunks of ``nloc = ceil(n / c)`` over the ``c`` mesh columns; each
+    chunk's real width is cut into ``tiles_per_proc`` tiles, and pad
+    columns are in no panel."""
+    c = max(int(c), 1)
+    nloc = -(-int(n) // c)
+    out = []
+    for jc in range(c):
+        vc = min(nloc, max(0, int(n) - jc * nloc))
+        if vc <= 0:
+            continue
+        nb = -(-vc // max(int(tiles_per_proc), 1))
+        lo = 0
+        while lo < vc:
+            out.append((jc, lo, min(nb, vc - lo)))
+            lo += nb
+    return tuple(out)

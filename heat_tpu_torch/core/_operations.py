@@ -15,6 +15,14 @@ sum whose axes cover the split axis, on a communicator of several
 positions, rides the block-scaled quantized ring
 (:func:`heat_tpu_torch.comm.compressed.reduce_q`) when the policy asks for
 compression.
+
+On a grid communicator the layouts follow the reference's: an elementwise
+map keeps the input's splits tuple, every other op lays its result out at
+the ``split`` compat int (the tuple that shards one dimension over mesh
+axis 0), and reductions compute on the true view, so no pad reaches a
+result (the reference's reductions keep mesh axis 1's pad, see ROADMAP's
+faults of the reference).  The quantized ring runs on one mesh axis only:
+a grid array reduces exactly.
 """
 
 from __future__ import annotations
@@ -146,10 +154,13 @@ def __local_op(
     x,
     out: Optional[DNDarray] = None,
     no_cast: bool = False,
+    keep_grid: bool = True,
     **kwargs,
 ) -> DNDarray:
     """Elementwise map; exact input types are float-promoted unless
-    ``no_cast`` (int64 to float64, everything else to float32)."""
+    ``no_cast`` (int64 to float64, everything else to float32).  The
+    result keeps ``x``'s splits tuple, or with ``keep_grid=False`` (maps
+    the reference computes another way) its ``split``."""
     sanitation.sanitize_in(x)
     arr = x.larray
     if not no_cast and types.heat_type_is_exact(x.dtype):
@@ -157,7 +168,7 @@ def __local_op(
     result = operation(arr, **kwargs)
     wrapped = DNDarray(
         result, tuple(result.shape), types.canonical_heat_type(result.dtype),
-        x.split if result.ndim else None, x.device, x.comm,
+        (x._layout if keep_grid else x.split) if result.ndim else None, x.device, x.comm,
     )
     return _out(out, wrapped)
 
@@ -184,7 +195,8 @@ def __reduce_op(
     split = _reduced_split(x, axes, keepdims)
 
     result = None
-    if split is None and x.split is not None and reduction is _sum and x.comm.size > 1:
+    if (split is None and x.split is not None and reduction is _sum and x.comm.size > 1
+            and x.comm.mesh_ndim == 1):
         # collective-precision seam: local partials + the quantized ring
         mode = _compressed_mode(x, axes)
         if mode is not None:

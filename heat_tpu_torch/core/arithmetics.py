@@ -147,8 +147,9 @@ power = pow
 
 
 def neg(x, out=None):
-    """Elementwise ``-x``."""
-    return _operations.__local_op(torch.neg, x, out, no_cast=True)
+    """Elementwise ``-x`` (laid out at ``x.split``, as the reference's
+    ``x * -1``)."""
+    return _operations.__local_op(torch.neg, x, out, no_cast=True, keep_grid=False)
 
 
 def _check_int(t1, t2, name):

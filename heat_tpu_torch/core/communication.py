@@ -14,12 +14,25 @@ that card.  While every position shares one device, a collective is a
 tensor operation along the stacked ``(p, ...)`` position axis and a ring
 hop is a roll along it.  Positions on different devices are not supported
 yet and raise :class:`NotImplementedError`.
+
+A communicator also has a ``mesh_shape``, ``(size,)`` by default.
+:func:`grid_comm` arranges the positions on an ``r x c`` grid, over which a
+layout is a *splits tuple*: ``splits[d]`` names the mesh axis that shards
+array dimension ``d`` (or None), and each sharded dimension is padded to a
+multiple of its own mesh axis.  The legacy ``split`` int is the tuple that
+shards one dimension over mesh axis 0.  The axis forms of
+:meth:`~TorchCommunication.pad_to_shards`, :meth:`~TorchCommunication.blocks`,
+:meth:`~TorchCommunication.shard_width` and friends keep their 1-D reading
+over all positions on a grid too: the port's ring algorithms take the
+positions as one flat ring of ``size``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import devices
@@ -32,6 +45,7 @@ __all__ = [
     "use_comm",
     "sanitize_comm",
     "comm_for_device",
+    "grid_comm",
 ]
 
 
@@ -58,9 +72,15 @@ class TorchCommunication(Communication):
     """A communicator over ``positions``, a sequence of torch devices (or
     their names), one entry per position.  Defaults to one position per
     visible CUDA device, or one CPU position when the default device is
-    the CPU."""
+    the CPU.  ``mesh_shape`` arranges the positions on a grid (row-major:
+    position ``i * c + j`` is grid position ``(i, j)``); its product must
+    be the number of positions.  Defaults to ``(size,)``, one axis."""
 
-    def __init__(self, positions: Optional[Sequence[Union[str, torch.device]]] = None):
+    def __init__(
+        self,
+        positions: Optional[Sequence[Union[str, torch.device]]] = None,
+        mesh_shape: Optional[Sequence[int]] = None,
+    ):
         if positions is None:
             dev = devices.get_device()
             if dev is devices.gpu:
@@ -75,6 +95,18 @@ class TorchCommunication(Communication):
                 f"positions on several devices ({sorted(set(map(str, self._positions)))}) "
                 "are not supported yet: every position must share one device"
             )
+        if mesh_shape is None:
+            mesh_shape = (len(self._positions),)
+        mesh_shape = tuple(int(s) for s in mesh_shape)
+        if any(s < 1 for s in mesh_shape) or math.prod(mesh_shape) != len(self._positions):
+            raise ValueError(
+                f"mesh_shape {mesh_shape} does not tile {len(self._positions)} position(s)"
+            )
+        self._mesh_shape = mesh_shape
+        if len(mesh_shape) == 1:
+            self._axis_names: Tuple[str, ...] = (MESH_AXIS,)
+        else:
+            self._axis_names = tuple(f"{MESH_AXIS}{i}" for i in range(len(mesh_shape)))
 
     # ------------------------------------------------------------------ #
     # identity                                                            #
@@ -89,14 +121,77 @@ class TorchCommunication(Communication):
         """Number of positions (the reference's mesh size)."""
         return len(self._positions)
 
+    @property
+    def mesh_shape(self) -> Tuple[int, ...]:
+        """The grid the positions are arranged on; ``(size,)`` on one axis."""
+        return self._mesh_shape
+
+    @property
+    def mesh_ndim(self) -> int:
+        """Number of mesh axes (1 unless made by :func:`grid_comm`)."""
+        return len(self._mesh_shape)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """Mesh axis names: ``("heat",)`` on one axis, ``("heat0", "heat1")``
+        on a 2-D grid."""
+        return self._axis_names
+
     def __repr__(self) -> str:
-        return f"TorchCommunication({self.size} position(s) on {self.device})"
+        grid = "" if self.mesh_ndim == 1 else f", mesh={'x'.join(map(str, self._mesh_shape))}"
+        return f"TorchCommunication({self.size} position(s) on {self.device}{grid})"
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, TorchCommunication) and self._positions == other._positions
+        return (
+            isinstance(other, TorchCommunication)
+            and self._positions == other._positions
+            and self._mesh_shape == other._mesh_shape
+        )
 
     def __hash__(self) -> int:
-        return hash(tuple(str(p) for p in self._positions))
+        return hash((tuple(str(p) for p in self._positions), self._mesh_shape))
+
+    # ------------------------------------------------------------------ #
+    # splits tuples                                                       #
+    # ------------------------------------------------------------------ #
+    def normalize_splits(self, ndim: int, split) -> Tuple[Optional[int], ...]:
+        """Any layout spelling as a splits tuple: ``None`` is replicated, an
+        int ``s`` shards dimension ``s`` over mesh axis 0, a sequence of
+        ``ndim`` mesh axes or Nones is checked and returned.  A mesh axis
+        shards at most one dimension."""
+        ndim = int(ndim)
+        if split is None:
+            return (None,) * ndim
+        if isinstance(split, (tuple, list)):
+            splits = tuple(None if g is None else int(g) for g in split)
+            if len(splits) != ndim:
+                raise ValueError(f"splits {splits} has arity {len(splits)}, array has ndim {ndim}")
+            used = [g for g in splits if g is not None]
+            for g in used:
+                if not 0 <= g < self.mesh_ndim:
+                    raise ValueError(
+                        f"splits {splits}: mesh axis {g} out of range for a "
+                        f"{self.mesh_ndim}-D mesh of shape {self._mesh_shape}"
+                    )
+            if len(set(used)) != len(used):
+                raise ValueError(f"splits {splits} uses a mesh axis more than once")
+            return splits
+        entries: List[Optional[int]] = [None] * ndim
+        entries[int(split)] = 0
+        return tuple(entries)
+
+    @staticmethod
+    def split_view(splits: Tuple[Optional[int], ...]) -> Optional[int]:
+        """The ``split`` int of a splits tuple: the dimension mesh axis 0
+        shards (None when it shards none)."""
+        for d, g in enumerate(splits):
+            if g == 0:
+                return d
+        return None
+
+    def _axis_size(self, mesh_axis: Optional[int] = None) -> int:
+        """Positions along one mesh axis; all of them for ``None``."""
+        return self.size if mesh_axis is None else int(self._mesh_shape[mesh_axis])
 
     # ------------------------------------------------------------------ #
     # shard geometry                                                      #
@@ -105,11 +200,15 @@ class TorchCommunication(Communication):
         self, shape: Sequence[int], split: Optional[int], rank: Optional[int] = None
     ) -> Tuple[int, Tuple[int, ...], Tuple[slice, ...]]:
         """``(offset, lshape, slices)`` of the shard position ``rank`` owns:
-        ceil-division shards, trailing shards absorb the shortfall."""
+        ceil-division shards, trailing shards absorb the shortfall.  A
+        splits tuple gives the grid shard of the row-major flat position
+        ``rank`` (:meth:`_chunk_grid`)."""
         rank = 0 if rank is None else rank
         shape = tuple(int(s) for s in shape)
         if split is None:
             return 0, shape, tuple(slice(0, s) for s in shape)
+        if isinstance(split, (tuple, list)):
+            return self._chunk_grid(shape, tuple(split), rank)
         split = int(split) % max(len(shape), 1)
         n = shape[split]
         c = self.shard_width(n)
@@ -120,6 +219,29 @@ class TorchCommunication(Communication):
             slice(start, stop) if dim == split else slice(0, s) for dim, s in enumerate(shape)
         )
         return start, lshape, slices
+
+    def _chunk_grid(
+        self, shape: Tuple[int, ...], splits: Tuple[Optional[int], ...], rank: int
+    ) -> Tuple[int, Tuple[int, ...], Tuple[slice, ...]]:
+        """The splits-tuple shard of flat position ``rank``: each sharded
+        dimension divides ceil-wise over its own mesh axis.  The offset is
+        the one along the dimension mesh axis 0 shards (0 if none)."""
+        splits = self.normalize_splits(len(shape), splits)
+        pos = np.unravel_index(int(rank) % max(self.size, 1), self._mesh_shape)
+        lshape, slices, offset0 = [], [], 0
+        for n, g in zip(shape, splits):
+            if g is None:
+                lshape.append(n)
+                slices.append(slice(0, n))
+                continue
+            c = self.shard_width(n, mesh_axis=g)
+            start = min(int(pos[g]) * c, n)
+            stop = min((int(pos[g]) + 1) * c, n)
+            lshape.append(stop - start)
+            slices.append(slice(start, stop))
+            if g == 0:
+                offset0 = start
+        return offset0, tuple(lshape), tuple(slices)
 
     def counts_displs_shape(
         self, shape: Sequence[int], split: int
@@ -134,33 +256,40 @@ class TorchCommunication(Communication):
         _, lshape0, _ = self.chunk(shape, split, rank=0)
         return tuple(counts), tuple(displs), tuple(lshape0)
 
-    def shard_width(self, n: int) -> int:
-        """Width of every padded shard of an axis of length ``n``."""
+    def shard_width(self, n: int, mesh_axis: Optional[int] = None) -> int:
+        """Width of every padded shard of an axis of length ``n`` over all
+        positions, or over mesh axis ``mesh_axis``."""
         n = int(n)
-        return -(-n // self.size) if n else 0
+        return -(-n // self._axis_size(mesh_axis)) if n else 0
 
-    def padded_size(self, n: int) -> int:
-        """Padded axis length ``p * shard_width(n)`` (>= n)."""
-        return self.size * self.shard_width(n)
+    def padded_size(self, n: int, mesh_axis: Optional[int] = None) -> int:
+        """Padded axis length ``p * shard_width(n)`` (>= n), ``p`` the
+        positions along ``mesh_axis`` (all of them for None)."""
+        return self._axis_size(mesh_axis) * self.shard_width(n, mesh_axis)
 
-    def valid_counts(self, n: int) -> Tuple[int, ...]:
+    def valid_counts(self, n: int, mesh_axis: Optional[int] = None) -> Tuple[int, ...]:
         """Per-position count of real (un-padded) rows of an axis of
-        length ``n``."""
-        c = self.shard_width(n)
+        length ``n``, over all positions or along ``mesh_axis``."""
+        c = self.shard_width(n, mesh_axis)
         n = int(n)
-        return tuple(min(c, max(0, n - r * c)) for r in range(self.size))
+        return tuple(min(c, max(0, n - r * c)) for r in range(self._axis_size(mesh_axis)))
 
-    def pad_to_shards(self, array: torch.Tensor, axis: int = 0) -> torch.Tensor:
-        """Zero-pad ``axis`` to its canonical padded length (no copy when
-        it already divides)."""
-        n = int(array.shape[axis])
-        pn = self.padded_size(n)
-        if pn == n:
-            return array
-        pad_shape = list(array.shape)
-        pad_shape[axis] = pn - n
-        pad = torch.zeros(pad_shape, dtype=array.dtype, device=array.device)
-        return torch.cat([array, pad], dim=axis)
+    def pad_to_shards(self, array: torch.Tensor, axis: int = 0, splits=None) -> torch.Tensor:
+        """Zero-pad to the canonical padded lengths (no copy when they
+        divide): ``axis`` over all positions, or, given ``splits``, every
+        dimension a mesh axis shards over that mesh axis (the at-rest form
+        of a DNDarray laid out at ``splits``).  On one mesh axis the two
+        agree."""
+        if splits is None:
+            widths = {int(axis) % max(array.ndim, 1): self.padded_size(int(array.shape[axis]))}
+        else:
+            splits = self.normalize_splits(array.ndim, splits)
+            widths = {d: self.padded_size(int(array.shape[d]), mesh_axis=g)
+                      for d, g in enumerate(splits) if g is not None}
+        pads = [0] * (2 * array.ndim)  # (left, right) per dimension, the last first
+        for d, pn in widths.items():
+            pads[2 * (array.ndim - 1 - d) + 1] = pn - int(array.shape[d])
+        return torch.constant_pad_nd(array, pads) if any(pads) else array
 
     def unpad(self, array: torch.Tensor, n: int, axis: int = 0) -> torch.Tensor:
         """The first ``n`` entries of a padded axis (a view)."""
@@ -168,14 +297,38 @@ class TorchCommunication(Communication):
             return array
         return array.narrow(axis, 0, int(n))
 
-    def blocks(self, buffer: torch.Tensor, split: int) -> torch.Tensor:
+    def blocks(self, buffer: torch.Tensor, split) -> torch.Tensor:
         """View a padded buffer split at ``split`` as its stacked position
-        blocks: shape ``(p,) + local block shape``."""
+        blocks: shape ``(p,) + local block shape``.  Given a splits tuple,
+        the view has shape ``mesh_shape + local block shape``: grid
+        position ``(i, j)``'s block at ``[i, j]`` (a mesh axis that shards
+        no dimension repeats the block along it, with stride 0), so a
+        broadcast from an owner is an index into it."""
+        if isinstance(split, (tuple, list)):
+            return self._grid_blocks(buffer, self.normalize_splits(buffer.ndim, split))
         shape = tuple(buffer.shape)
         p = self.size
         c = shape[split] // p
         view = buffer.reshape(shape[:split] + (p, c) + shape[split + 1:])
         return view.movedim(split, 0)
+
+    def _grid_blocks(self, buffer: torch.Tensor, splits) -> torch.Tensor:
+        shape, view_shape, mesh_pos, local = tuple(buffer.shape), [], {}, []
+        for d, g in enumerate(splits):
+            if g is not None:
+                p = self._axis_size(g)
+                mesh_pos[g] = len(view_shape)
+                view_shape.append(p)
+                local.append(len(view_shape))
+                view_shape.append(shape[d] // p)
+            else:
+                local.append(len(view_shape))
+                view_shape.append(shape[d])
+        view = buffer.reshape(view_shape).permute([mesh_pos[g] for g in sorted(mesh_pos)] + local)
+        for g in range(self.mesh_ndim):
+            if g not in mesh_pos:
+                view = view.unsqueeze(g)
+        return view.expand(list(self._mesh_shape) + list(view.shape[self.mesh_ndim:]))
 
     # ------------------------------------------------------------------ #
     # collectives on the stacked position axis                            #
@@ -222,11 +375,15 @@ class TorchCommunication(Communication):
                 return _cq.allgather_q(array, axis=axis, comm=self, precision=mode)
         return array
 
-    def resplit(self, array: torch.Tensor, split: Optional[int]) -> torch.Tensor:
+    def resplit(self, array: torch.Tensor, split) -> torch.Tensor:
         """The at-rest form of a TRUE-shape global tensor laid out at
-        ``split``: the split axis zero-padded to its canonical length."""
+        ``split``: the split axis zero-padded to its canonical length.  A
+        splits tuple, or any layout on a grid, pads every sharded
+        dimension over its mesh axis (:meth:`pad_to_shards` ``splits=``)."""
         if split is None or array.ndim == 0:
             return array
+        if isinstance(split, (tuple, list)) or self.mesh_ndim > 1:
+            return self.pad_to_shards(array, splits=self.normalize_splits(array.ndim, split))
         return self.pad_to_shards(array, axis=int(split) % array.ndim)
 
     def alltoall(self, array: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
@@ -389,6 +546,34 @@ def get_comm() -> TorchCommunication:
     if _default_comm is not None:
         return _default_comm
     return comm_for_device(devices.get_device())
+
+
+_grid_comms: Dict[Tuple, TorchCommunication] = {}
+
+
+def grid_comm(
+    mesh_shape: Sequence[int],
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
+    positions: Optional[Sequence[Union[str, torch.device]]] = None,
+) -> TorchCommunication:
+    """A communicator arranging positions on a grid of ``mesh_shape``
+    (mesh axes ``"heat0"``, ``"heat1"``, ...), over which ``splits``
+    tuples shard several dimensions at once.  ``positions`` (also the
+    second positional argument) lists one device per position, e.g.
+    ``grid_comm((2, 2), ["cuda"] * 4)`` puts four positions on one card;
+    without it, ``prod(mesh_shape)`` positions share the default
+    communicator's device, and the communicator is cached per shape and
+    device."""
+    mesh_shape = tuple(int(s) for s in mesh_shape)
+    if positions is None:
+        positions = devices
+    if positions is not None:
+        return TorchCommunication(positions, mesh_shape=mesh_shape)
+    device = get_comm().device
+    key = (mesh_shape, str(device))
+    if key not in _grid_comms:
+        _grid_comms[key] = TorchCommunication([device] * math.prod(mesh_shape), mesh_shape=mesh_shape)
+    return _grid_comms[key]
 
 
 def use_comm(comm: Optional[TorchCommunication] = None) -> None:

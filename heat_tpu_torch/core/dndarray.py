@@ -13,7 +13,12 @@ Invariants:
   constructor re-pads with zeros, so the compressed reductions may sum a
   whole shard without masking (the reference keeps pads unspecified and
   relies on callers; here the invariant is kept centrally);
-* ``split`` is ``None`` (replicated) or an axis index.
+* ``split`` is ``None`` (replicated) or an axis index;
+* ``splits`` is the layout as a tuple of mesh axes, one per dimension
+  (:meth:`TorchCommunication.normalize_splits`): on a grid communicator
+  (:func:`~.communication.grid_comm`) every dimension a mesh axis shards
+  is padded to a multiple of that axis, and ``split`` is the tuple's
+  compat view, the dimension mesh axis 0 shards.
 
 The layout is canonical, so every array is balanced: ``balance_`` is a
 no-op and ``redistribute_`` accepts only the canonical map, as in the
@@ -90,9 +95,9 @@ class LocalIndex:
     def __setitem__(self, key, value):
         obj = self.__obj
         buf = obj._buffer.clone()
-        arr = buf if obj.split is None else obj.comm.unpad(buf, obj.gshape[obj.split], obj.split)
+        arr = obj._true_view(buf)
         arr[key] = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
-        obj._rebind(DNDarray(buf, obj.gshape, obj.dtype, obj.split, obj.device, obj.comm))
+        obj._rebind(DNDarray(buf, obj.gshape, obj.dtype, obj._layout, obj.device, obj.comm))
 
 
 class DNDarray:
@@ -106,7 +111,8 @@ class DNDarray:
     gshape : tuple of int
         TRUE global shape.
     dtype : heat type
-    split : int or None
+    split : int, None or a splits tuple
+        A tuple names the mesh axis sharding each dimension (or None).
     device : Device
     comm : TorchCommunication
     """
@@ -116,7 +122,7 @@ class DNDarray:
         array: torch.Tensor,
         gshape: Tuple[int, ...],
         dtype,
-        split: Optional[int],
+        split,
         device: Device,
         comm: TorchCommunication,
     ):
@@ -125,39 +131,50 @@ class DNDarray:
         self.__device = device
         self.__comm = comm
         ndim = len(self.__gshape)
-        if split is not None:
-            if ndim == 0:
-                split = None
-            elif not -ndim <= int(split) < ndim:
-                raise ValueError(
-                    f"split axis {split} out of range for {ndim}-dimensional "
-                    f"shape {self.__gshape}"
-                )
-            else:
-                split = int(split) % ndim
+        if isinstance(split, (tuple, list)):
+            splits = comm.normalize_splits(ndim, split)
+            split = comm.split_view(splits)
+        else:
+            if split is not None:
+                if ndim == 0:
+                    split = None
+                elif not -ndim <= int(split) < ndim:
+                    raise ValueError(
+                        f"split axis {split} out of range for {ndim}-dimensional "
+                        f"shape {self.__gshape}"
+                    )
+                else:
+                    split = int(split) % ndim
+            splits = comm.normalize_splits(ndim, split)
         self.__split = split
+        self.__splits = splits
         self.__array = self.__commit(array)
         self.__halo_prev = None
         self.__halo_next = None
         self.__halo_size = 0
 
     def __commit(self, array: torch.Tensor) -> torch.Tensor:
-        """Bring ``array`` to the at-rest form: pad a ragged split axis."""
-        split = self.__split
-        if split is None:
+        """Bring ``array`` to the at-rest form: pad every ragged sharded
+        dimension (each may arrive at its true or its padded length)."""
+        needs_pad = False
+        for d, g in enumerate(self.__splits):
+            if g is None:
+                continue
+            n = self.__gshape[d]
+            pn = self.__comm.padded_size(n, mesh_axis=g)
+            have = int(array.shape[d])
+            if have == pn:
+                continue
+            if have != n:
+                raise ValueError(
+                    f"backing array axis {d} has length {have}; expected the "
+                    f"true length {n} or the padded length {pn} for gshape "
+                    f"{self.__gshape} over mesh {self.__comm.mesh_shape}"
+                )
+            needs_pad = True
+        if not needs_pad:
             return array
-        n = self.__gshape[split]
-        pn = self.__comm.padded_size(n)
-        have = int(array.shape[split])
-        if have == pn:
-            return array
-        if have != n:
-            raise ValueError(
-                f"backing array axis {split} has length {have}; expected the "
-                f"true length {n} or the padded length {pn} for gshape "
-                f"{self.__gshape} over {self.__comm.size} position(s)"
-            )
-        return self.__comm.pad_to_shards(array, axis=split)
+        return self.__comm.pad_to_shards(array, splits=self.__splits)
 
     # ------------------------------------------------------------------ #
     # metadata                                                            #
@@ -184,7 +201,21 @@ class DNDarray:
 
     @property
     def split(self) -> Optional[int]:
+        """The sharded axis (None: replicated); on a grid, the compat view
+        of :attr:`splits`: the dimension mesh axis 0 shards."""
         return self.__split
+
+    @property
+    def splits(self) -> Tuple[Optional[int], ...]:
+        """``splits[d]`` is the mesh axis sharding dimension ``d`` (None:
+        unsharded); on one mesh axis the one-hot spelling of :attr:`split`."""
+        return self.__splits
+
+    @property
+    def _layout(self):
+        """The layout as the communicator's methods take it: ``split`` on
+        one mesh axis, the splits tuple on a grid."""
+        return self.__splits if self.__comm.mesh_ndim > 1 else self.__split
 
     @property
     def ndim(self) -> int:
@@ -197,15 +228,29 @@ class DNDarray:
     @property
     def larray(self) -> torch.Tensor:
         """The global tensor at its TRUE shape (a view of the buffer)."""
-        arr = self.__array
-        if self.__split is None:
-            return arr
-        return self.__comm.unpad(arr, self.__gshape[self.__split], self.__split)
+        return self._true_view(self.__array)
+
+    def _true_view(self, buf: torch.Tensor) -> torch.Tensor:
+        """``buf`` (this array's buffer or a copy of it) narrowed to the
+        true shape along every padded sharded dimension."""
+        for d, g in enumerate(self.__splits):
+            if g is not None:
+                buf = self.__comm.unpad(buf, self.__gshape[d], d)
+        return buf
 
     @property
     def _buffer(self) -> torch.Tensor:
         """The padded at-rest buffer (pad rows zero)."""
         return self.__array
+
+    def _zeroed_buffer(self) -> torch.Tensor:
+        """The at-rest buffer with every pad forced to zero, for consumers
+        that take whole padded blocks (the grid QR and SVD): the buffer
+        itself when no dimension is padded, else the true view re-padded
+        with zeros (one copy), whatever the buffer's pads hold."""
+        if self.__array.shape == torch.Size(self.__gshape):
+            return self.__array
+        return self.__comm.pad_to_shards(self.larray, splits=self.__splits)
 
     @property
     def padshape(self) -> Tuple[int, ...]:
@@ -213,8 +258,8 @@ class DNDarray:
 
     @property
     def lshape(self) -> Tuple[int, ...]:
-        """Shape of position 0's shard."""
-        _, lshape, _ = self.__comm.chunk(self.__gshape, self.__split, rank=0)
+        """Shape of position 0's shard (a grid's flat position 0)."""
+        _, lshape, _ = self.__comm.chunk(self.__gshape, self._layout, rank=0)
         return lshape
 
     @property
@@ -228,7 +273,7 @@ class DNDarray:
         size = self.__comm.size
         out = np.zeros((size, max(self.ndim, 1)), dtype=np.int64)
         for r in range(size):
-            _, lshape, _ = self.__comm.chunk(self.__gshape, self.__split, rank=r)
+            _, lshape, _ = self.__comm.chunk(self.__gshape, self._layout, rank=r)
             out[r, : len(lshape)] = lshape
         return out
 
@@ -416,7 +461,7 @@ class DNDarray:
         dtype = types.canonical_heat_type(dtype)
         buf = types._cast(self.__array, dtype.torch_type(), copy=True)
         if copy:
-            return DNDarray(buf, self.__gshape, dtype, self.__split, self.__device, self.__comm)
+            return DNDarray(buf, self.__gshape, dtype, self._layout, self.__device, self.__comm)
         self.__array, self.__dtype = buf, dtype
         self._invalidate_halos()
         return self
@@ -520,7 +565,8 @@ class DNDarray:
         several positions and at least ``_RING_INDEX_MIN`` elements: the
         key the ring gather/scatter serves.  Else None."""
         s = self.__split
-        if s is None or not self.is_distributed() or self.size < _RING_INDEX_MIN:
+        if (s is None or not self.is_distributed() or self.size < _RING_INDEX_MIN
+                or self.__comm.mesh_ndim > 1):
             return None
         if len(key) > self.ndim:
             return None
@@ -658,8 +704,7 @@ class DNDarray:
         # torch slices step forward only: a backward slice becomes the
         # forward slice over the same elements, the value flipped to match
         buf = self.__array.clone()
-        split = self.__split
-        arr = buf if split is None else self.__comm.unpad(buf, self.__gshape[split], split)
+        arr = self._true_view(buf)
         tkey, flips, out_axis, in_axis = [], [], 0, 0
         for k in _basic_key(key, self.ndim):
             if _inserts(k):
@@ -725,6 +770,8 @@ class DNDarray:
         if self.__split is None or halo_size == 0:
             self._invalidate_halos()
             return
+        if self.__comm.mesh_ndim > 1:
+            raise NotImplementedError("halos of an array on a position grid are not ported")
         from ..parallel.primitives import halo_exchange
 
         split = self.__split
@@ -767,20 +814,21 @@ class DNDarray:
         """The array with its axes reversed."""
         return self.transpose()
 
-    def resplit(self, axis: Optional[int] = None) -> "DNDarray":
-        """A copy laid out at ``axis`` (``None``: replicated)."""
+    def resplit(self, axis=None) -> "DNDarray":
+        """A copy laid out at ``axis`` (``None``: replicated; a splits
+        tuple on a grid)."""
         arr = self.__comm.resplit(self.larray, axis)
         if arr.untyped_storage().data_ptr() == self.__array.untyped_storage().data_ptr():
             arr = arr.contiguous().clone()
         return DNDarray(arr, self.__gshape, self.__dtype, axis, self.__device, self.__comm)
 
-    def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
-        """Lay this array out at ``axis``, in place."""
-        from .stride_tricks import sanitize_axis
+    def resplit_(self, axis=None) -> "DNDarray":
+        """Lay this array out at ``axis`` (or a splits tuple), in place."""
+        from . import manipulations
 
-        axis = sanitize_axis(self.__gshape, axis)
-        if axis != self.__split:
-            self._rebind(self.resplit(axis))
+        res = manipulations.resplit(self, axis)
+        if res.splits != self.__splits:
+            self._rebind(res)
         return self
 
     # ------------------------------------------------------------------ #
@@ -1301,4 +1349,5 @@ class DNDarray:
         self.__gshape = other.gshape
         self.__dtype = other.dtype
         self.__split = other.split
+        self.__splits = other.splits
         self._invalidate_halos()

@@ -6,7 +6,11 @@ Port of ``heat_tpu/core/factories.py``.  Python scalars and lists default
 to 32-bit types (int32 / float32) unless their values need 64 bits; numpy
 arrays and tensors keep their dtype.  The data lands on the
 communicator's device.  ``order`` is validated and the buffer stays
-C-contiguous, as in the reference.
+C-contiguous, as in the reference.  ``splits=`` (on ``array``, ``empty``,
+``zeros``, ``ones``, ``full`` and ``eye``) is the grid spelling of the
+layout: a tuple naming the mesh axis that shards each dimension, e.g.
+``splits=(0, 1)`` on a :func:`~.communication.grid_comm` shards both
+dimensions of a matrix; ``split`` and ``splits`` are mutually exclusive.
 
 ``linspace`` evaluates the reference's formula in float64 (``start * (1 -
 i/d) + stop * i/d``, then ``stop``) as its compiled program does, fused
@@ -73,9 +77,22 @@ def _setup(device, comm) -> Tuple[devices.Device, TorchCommunication]:
     return device, comm_for_device(device)
 
 
-def _wrap(garr: torch.Tensor, dtype, split, device, comm) -> DNDarray:
-    split = sanitize_axis(tuple(garr.shape), split)
-    return DNDarray(garr, tuple(garr.shape), dtype, split, device, comm)
+def _resolve_layout(shape, split, splits, comm):
+    """One layout from the two spellings: ``splits`` (a mesh-axis tuple,
+    checked against the communicator's mesh) or the ``split`` int (a
+    tuple given as ``split`` counts as ``splits``)."""
+    if splits is not None:
+        if split is not None:
+            raise ValueError("split and splits are mutually exclusive parameters")
+        return comm.normalize_splits(len(tuple(shape)), splits)
+    if isinstance(split, (tuple, list)):
+        return comm.normalize_splits(len(tuple(shape)), split)
+    return sanitize_axis(tuple(shape), split)
+
+
+def _wrap(garr: torch.Tensor, dtype, split, device, comm, splits=None) -> DNDarray:
+    layout = _resolve_layout(tuple(garr.shape), split, splits, comm)
+    return DNDarray(garr, tuple(garr.shape), dtype, layout if garr.ndim else None, device, comm)
 
 
 def array(
@@ -88,12 +105,17 @@ def array(
     is_split: Optional[int] = None,
     device=None,
     comm=None,
+    splits=None,
 ) -> DNDarray:
     """The master constructor.  ``split`` lays a global array out along an
     axis; ``is_split`` declares ``obj`` a sequence of per-position pieces
-    to concatenate along that axis."""
+    to concatenate along that axis; ``splits`` is a grid layout.  A
+    DNDarray on the same communicator keeps its whole layout, one from
+    another communicator its ``split``."""
     if split is not None and is_split is not None:
         raise ValueError("split and is_split are mutually exclusive parameters")
+    if splits is not None and (split is not None or is_split is not None):
+        raise ValueError("splits is mutually exclusive with split/is_split")
     device, comm = _setup(device, comm)
     sanitize_memory_layout(None, order)
     target = comm.device
@@ -110,8 +132,8 @@ def array(
 
     if isinstance(obj, DNDarray):
         garr = obj.larray
-        if split is None and is_split is None:
-            split = obj.split
+        if split is None and is_split is None and splits is None:
+            split = obj._layout if obj.comm == comm else obj.split
         inferred = obj.dtype
     elif isinstance(obj, torch.Tensor):
         garr = obj
@@ -143,7 +165,7 @@ def array(
     extra = abs(int(ndmin)) - garr.ndim
     if extra > 0:
         garr = garr.reshape((1,) * extra + tuple(garr.shape))
-    return _wrap(garr, dtype, split, device, comm)
+    return _wrap(garr, dtype, split, device, comm, splits)
 
 
 def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
@@ -181,34 +203,37 @@ def asarray(obj, dtype=None, order="C", is_split=None, device=None) -> DNDarray:
     return array(obj, dtype=dtype, copy=False, is_split=is_split, device=device)
 
 
-def _factory(shape, fill, dtype, split, device, comm, order="C") -> DNDarray:
+def _factory(shape, fill, dtype, split, device, comm, order="C", splits=None) -> DNDarray:
     shape = sanitize_shape(shape)
     dtype = types.canonical_heat_type(dtype)
     device, comm = _setup(device, comm)
+    layout = _resolve_layout(shape, split, splits, comm)
     sanitize_memory_layout(None, order)
     fill = types._cast_scalar(fill, dtype.torch_type())
     garr = torch.full(shape, fill, dtype=dtype.torch_type(), device=comm.device)
-    return _wrap(garr, dtype, split, device, comm)
+    return _wrap(garr, dtype, layout, device, comm)
 
 
-def empty(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+def empty(shape, dtype=types.float32, split=None, device=None, comm=None, order="C", splits=None) -> DNDarray:
     """An array of the shape; its values are zeros, as the reference's."""
-    return _factory(shape, 0, dtype, split, device, comm, order)
+    return _factory(shape, 0, dtype, split, device, comm, order, splits)
 
 
-def zeros(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+def zeros(shape, dtype=types.float32, split=None, device=None, comm=None, order="C", splits=None) -> DNDarray:
     """Array of zeros."""
-    return _factory(shape, 0, dtype, split, device, comm, order)
+    return _factory(shape, 0, dtype, split, device, comm, order, splits)
 
 
-def ones(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+def ones(shape, dtype=types.float32, split=None, device=None, comm=None, order="C", splits=None) -> DNDarray:
     """Array of ones."""
-    return _factory(shape, 1, dtype, split, device, comm, order)
+    return _factory(shape, 1, dtype, split, device, comm, order, splits)
 
 
-def full(shape, fill_value, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+def full(
+    shape, fill_value, dtype=types.float32, split=None, device=None, comm=None, order="C", splits=None
+) -> DNDarray:
     """Constant-filled array."""
-    return _factory(shape, fill_value, dtype, split, device, comm, order)
+    return _factory(shape, fill_value, dtype, split, device, comm, order, splits)
 
 
 def _factory_like(a, dtype, split, factory, device, comm, order="C", **kwargs) -> DNDarray:
@@ -246,7 +271,7 @@ def full_like(a, fill_value, dtype=types.float32, split=None, device=None, comm=
     return _factory_like(a, dtype, split, full, device, comm, order, fill_value=fill_value)
 
 
-def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C", splits=None) -> DNDarray:
     """Ones on the main diagonal of an ``n x n`` (an int) or ``n x m``
     matrix, zeros elsewhere."""
     sanitize_memory_layout(None, order)
@@ -257,8 +282,9 @@ def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C
         gshape = (shape[0], shape[1] if len(shape) > 1 else shape[0])
     dtype = types.canonical_heat_type(dtype)
     device, comm = _setup(device, comm)
+    layout = _resolve_layout(gshape, split, splits, comm)
     garr = torch.eye(gshape[0], gshape[1], dtype=dtype.torch_type(), device=comm.device)
-    return _wrap(garr, dtype, split, device, comm)
+    return _wrap(garr, dtype, layout, device, comm)
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:

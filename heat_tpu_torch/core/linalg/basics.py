@@ -1,13 +1,16 @@
 """Linear algebra basics: ``matmul``, ``dot``, the norms, ``outer``,
 ``projection``, ``transpose``, ``tril`` and ``triu``.
 
-Port of the 1-D half of ``heat_tpu/core/linalg/basics.py``.  Every
-position lives on one device, so a product in any split combination is one
-``torch.matmul`` over the true-shape operands (no pad value reaches the
-k-sum), laid out at the reference's result split.  The reference's 1-D
-ring SUMMA (a stationary operand, the other's shards rotating p rounds)
-bounds memory per device and returns with positions on several cards; the
-grid SUMMA of a 2-D position grid is not ported.
+Port of ``heat_tpu/core/linalg/basics.py``.  Every position lives on one
+device, so a product in any split combination is one ``torch.matmul`` over
+the true-shape operands (no pad value reaches the k-sum), laid out at the
+reference's result split.  On a 2-D position grid the three layouts the
+reference's grid SUMMA serves, ``(0, 1) x (0, 1)``, ``(0, None) x (None,
+1)`` and ``(None, 1) x (0, None)``, give a product at ``splits=(0, 1)``.
+The reference's ring and grid SUMMA schedules (panels broadcast over the
+positions, one block product per panel) bound memory per device and come
+back with positions on several cards (ROADMAP A3b); on one card they give
+the same values at extra copies.
 
 Matrix products run at the precision :func:`set_matmul_precision` names,
 mapped onto ``torch.set_float32_matmul_precision`` for the duration of each
@@ -110,6 +113,22 @@ def _mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: the operand layouts of the reference's grid SUMMA schedules
+_GRID_LAYOUTS = {
+    ((0, 1), (0, 1)): "grid",
+    ((0, None), (None, 1)): "rowcol",
+    ((None, 1), (0, None)): "colrow",
+}
+
+
+def _grid_layout(a: DNDarray, b: DNDarray) -> Optional[str]:
+    """The grid SUMMA schedule the reference runs for ``a @ b``, or None."""
+    comm = a.comm
+    if a.ndim != 2 or b.ndim != 2 or comm.mesh_ndim != 2 or comm.size == 1:
+        return None
+    return _GRID_LAYOUTS.get((a.splits, b.splits))
+
+
 def _result_split_matmul(a: DNDarray, b: DNDarray, out_ndim: int) -> Optional[int]:
     """Split of a product: split 0 of a matrix ``a`` gives a row-split
     result, a ``b`` split on its last axis a column-split one; a product
@@ -152,7 +171,7 @@ def matmul(
     dtype = promoted.torch_type()
     with _matmul_precision(precision):
         garr = _mm(a.larray.to(dtype), b.larray.to(dtype))
-    split = _result_split_matmul(a, b, garr.ndim)
+    split = (0, 1) if _grid_layout(a, b) else _result_split_matmul(a, b, garr.ndim)
     return _out(out, DNDarray(garr, tuple(garr.shape), promoted, split, a.device, a.comm))
 
 
@@ -183,7 +202,8 @@ def _scalar(a: DNDarray, res: torch.Tensor) -> DNDarray:
 
 def norm(a: DNDarray) -> DNDarray:
     """The 2-norm of the whole array, ``sqrt(sum(a * a))``, as a 0-d
-    DNDarray (``float()`` of it is the caller's host sync)."""
+    DNDarray (``float()`` of it is the caller's host sync), in every
+    layout: the sum runs over the true view, so no pad enters it."""
     sanitize_in(a)
     x = _inexact(a)
     return _scalar(a, torch.sqrt(torch.sum(x * x)))

@@ -283,10 +283,24 @@ def reshape(a: DNDarray, shape, new_split: Optional[int] = None, **kwargs) -> DN
     return _rewrap(a, garr, new_split, a.dtype)
 
 
-def resplit(arr: DNDarray, axis: Optional[int] = None) -> DNDarray:
+def resplit(arr: DNDarray, axis=None) -> DNDarray:
     """The array laid out at ``axis`` (None: replicated); the same layout
-    shares the at-rest buffer."""
+    shares the at-rest buffer.  ``axis`` may be a splits tuple, the grid's
+    spelling (on one mesh axis it is its ``split`` int); on a grid an int
+    lays the array out over mesh axis 0 alone."""
     sanitize_in(arr)
+    comm = arr.comm
+    if isinstance(axis, (tuple, list)) or comm.mesh_ndim > 1:
+        if not isinstance(axis, (tuple, list)):
+            axis = sanitize_axis(arr.shape, axis)
+        splits = comm.normalize_splits(arr.ndim, axis)
+        if comm.mesh_ndim == 1:
+            axis = comm.split_view(splits)
+        else:
+            if splits == arr.splits:
+                return DNDarray(arr._buffer, arr.shape, arr.dtype, splits, arr.device, comm)
+            garr = comm.commit_split(arr.larray, splits)
+            return DNDarray(garr, arr.shape, arr.dtype, splits, arr.device, comm)
     axis = sanitize_axis(arr.shape, axis)
     if axis == arr.split:
         return DNDarray(arr._buffer, arr.shape, arr.dtype, axis, arr.device, arr.comm)

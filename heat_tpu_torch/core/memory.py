@@ -11,12 +11,15 @@ __all__ = ["copy", "sanitize_memory_layout"]
 
 
 def copy(x):
-    """An independent copy of a DNDarray: its at-rest buffer cloned."""
+    """An independent copy of a DNDarray at ``x.split``, as the
+    reference's (on a grid the copy keeps the compat view only): the
+    at-rest buffer cloned where the layout is unchanged."""
     from .dndarray import DNDarray
 
     if not isinstance(x, DNDarray):
         raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
-    return DNDarray(x._buffer.clone(), x.gshape, x.dtype, x.split, x.device, x.comm)
+    src = x._buffer if x.comm.mesh_ndim == 1 else x.larray
+    return DNDarray(src.clone(), x.gshape, x.dtype, x.split, x.device, x.comm)
 
 
 def sanitize_memory_layout(x, order: str = "C"):

@@ -52,8 +52,8 @@ def floor(x, out=None):
 def modf(x, out=None) -> Tuple[DNDarray, DNDarray]:
     """Fractional and integral parts, both with ``x``'s sign."""
     sanitize_in(x)
-    frac = _operations.__local_op(torch.frac, x)
-    integ = _operations.__local_op(torch.trunc, x)
+    frac = _operations.__local_op(torch.frac, x, keep_grid=False)
+    integ = _operations.__local_op(torch.trunc, x, keep_grid=False)
     if out is None:
         return frac, integ
     if not isinstance(out, tuple) or len(out) != 2:

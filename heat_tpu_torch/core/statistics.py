@@ -61,7 +61,8 @@ def _compressed_moment(x: DNDarray, axis, keepdims: bool, kind: str, ddof: int =
     geometry) keeps the exact path.  var/std combine the first moment
     exactly and compress only the centered second moment
     (:func:`heat_tpu_torch.comm.compressed.moments_q`)."""
-    if x.split is None or x.comm.size <= 1 or types.heat_type_is_exact(x.dtype):
+    if (x.split is None or x.comm.size <= 1 or x.comm.mesh_ndim > 1
+            or types.heat_type_is_exact(x.dtype)):
         return None
     axes = _operations._axes(x.ndim, axis)
     if x.split not in axes:

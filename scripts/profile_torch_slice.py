@@ -25,7 +25,11 @@ at four positions under ``int8_block``; then, at four positions on the
 blobs, the distributed sorts (the 1-D ring rank sort of a column, the
 resplit sort along axis 0), the ring take ``X[perm]`` and the ring put
 ``Y[perm] = X``, each beside its single library call (a stable
-``torch.sort``, ``index_select``, ``index_copy_``).  For each it prints the wall time, the summed
+``torch.sort``, ``index_select``, ``index_copy_``); then, on a 2 x 4 grid of
+positions, the grid SUMMA of two 1024 x 1024 float32 operands, the grid
+CAQR QR of 4096 x 512 and the QDWH SVD of 1024 x 256 (``chip_smoke.py``
+phase 11's operands), each beside ``torch.matmul``, ``torch.linalg.qr`` and
+``torch.linalg.svd``.  For each it prints the wall time, the summed
 device time of the kernels and their share of the wall time (the device's
 busy share), the host's waits on the device (synchronize calls of the
 CUDA runtime, and reads of a device scalar such as ``bool(t)``), and the
@@ -202,6 +206,24 @@ def main() -> int:
         ("  yardstick: index_copy_", lambda: Y4.larray.clone().index_copy_(0, perm.larray, X4.larray)),
     ):
         rows.append(profile(torch, f"{label}, 4 positions", fn, top=6))
+
+    grid = htt.grid_comm((2, 4), [dev] * 8)
+    rng = np.random.default_rng(13)
+    a, b = (rng.normal(size=(cs.SUMMA2D_N, cs.SUMMA2D_N)).astype(np.float32) for _ in range(2))
+    rng = np.random.default_rng(29)
+    qa = rng.normal(size=(cs.QR2D_M, cs.QR2D_N)).astype(np.float32)
+    sa = rng.normal(size=(cs.SVD2D_M, cs.SVD2D_N)).astype(np.float32)
+    A, B = htt.array(a, splits=(0, 1), comm=grid), htt.array(b, splits=(0, 1), comm=grid)
+    QA, SA = htt.array(qa, splits=(0, 1), comm=grid), htt.array(sa, splits=(0, 1), comm=grid)
+    for label, fn in (
+        ("grid SUMMA 1024^3", lambda: A @ B),
+        ("  yardstick: torch.matmul", lambda: torch.matmul(A.larray, B.larray)),
+        (f"grid CAQR QR {cs.QR2D_M}x{cs.QR2D_N}", lambda: htt.linalg.qr(QA)),
+        ("  yardstick: torch.linalg.qr", lambda: torch.linalg.qr(QA.larray)),
+        (f"QDWH SVD {cs.SVD2D_M}x{cs.SVD2D_N}", lambda: htt.linalg.svd(SA)),
+        ("  yardstick: torch.linalg.svd", lambda: torch.linalg.svd(SA.larray, full_matrices=False)),
+    ):
+        rows.append(profile(torch, f"{label}, 2x4 grid", fn, top=6))
     card = cs.card_line()
     print(card)
     if args.out:

@@ -777,3 +777,102 @@ def test_half_nan_converts_as_the_reference_on_card(cuda_device, src):
         assert torch.equal(got, htt.array(x, dtype=half, comm=cpu).larray.view(torch.int16))
     assert htt.array(x, dtype=htt.bfloat16, comm=card).larray.view(torch.int16).cpu().tolist()[:3] == [
         0x7FC0, -0x40, 0x3FC0]
+
+
+# --------------------------------------------------------------------- #
+# the 2-D grid of positions: SUMMA layouts, CAQR and QDWH on the card    #
+# --------------------------------------------------------------------- #
+GRID_MESHES = [(2, 2), (2, 4)]
+GRID_LAYOUTS = [((0, 1), (0, 1)), ((0, None), (None, 1)), ((None, 1), (0, None))]
+
+
+def _grids(device, mesh):
+    n = mesh[0] * mesh[1]
+    return htt.grid_comm(mesh, [device] * n), htt.grid_comm(mesh, ["cpu"] * n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", GRID_MESHES)
+@pytest.mark.parametrize("sa,sb", GRID_LAYOUTS)
+@pytest.mark.parametrize("m,k,n", [(7, 13, 9), (64, 96, 80)])
+def test_grid_summa_layouts_on_card(cuda_device, mesh, sa, sb, m, k, n):
+    """The three grid layouts on the card: ``splits=(0, 1)``, within 1e-5
+    of the port's CPU result and of float64 (float32 sums of k terms)."""
+    card, cpu = _grids(cuda_device, mesh)
+    rng = np.random.default_rng(29)
+    a, b = rng.normal(size=(m, k)).astype(np.float32), rng.normal(size=(k, n)).astype(np.float32)
+    got = htt.array(a, splits=sa, comm=card) @ htt.array(b, splits=sb, comm=card)
+    want = htt.array(a, splits=sa, comm=cpu) @ htt.array(b, splits=sb, comm=cpu)
+    assert got.splits == want.splits == (0, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), a.astype(np.float64) @ b, rtol=1e-5, atol=1e-5)
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(19, 10), (96, 24), (256, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cusolver_householder_signs_match_lapack(cuda_device, shape, dtype):
+    """cuSOLVER's QR on the card carries LAPACK's Householder signs on the
+    CPU (R's diagonal), singly and batched as the grid CAQR calls it."""
+    x = torch.from_numpy(np.random.default_rng(22).normal(size=(3,) + shape)).to(dtype)
+    _, r_cpu = torch.linalg.qr(x)
+    _, r_card = torch.linalg.qr(x.to(cuda_device))
+    _, r_one = torch.linalg.qr(x[0].to(cuda_device))
+    d_cpu = torch.diagonal(r_cpu, dim1=-2, dim2=-1).sign()
+    assert torch.equal(torch.diagonal(r_card, dim1=-2, dim2=-1).sign().cpu(), d_cpu)
+    assert torch.equal(torch.diagonal(r_one).sign().cpu(), d_cpu[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", GRID_MESHES)
+@pytest.mark.parametrize("m,n", [(19, 10), (33, 7), (256, 64)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grid_qr_on_card_matches_the_cpu(cuda_device, mesh, m, n, dtype):
+    """The grid CAQR on the card against the port's CPU result, unnormalised
+    (the same Householder signs): Q and R within 1e-5 of their largest
+    entry in float32 (1e-12 in float64), R upper triangular, the
+    reconstruction and orthonormality as phase 7 holds them."""
+    card, cpu = _grids(cuda_device, mesh)
+    a = np.random.default_rng(31).standard_normal((m, n)).astype(dtype)
+    q, r = htt.linalg.qr(htt.array(a, splits=(0, 1), comm=card))
+    qc, rc = htt.linalg.qr(htt.array(a, splits=(0, 1), comm=cpu))
+    assert q.splits == (0, 1) and r.splits == (None, 1)
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    for got, want in ((q, qc), (r, rc)):
+        w = want.numpy()
+        assert np.abs(got.numpy() - w).max() <= tol * np.abs(w).max()
+    res_tol, orth_tol = _tols(torch.float32 if dtype == np.float32 else torch.float64)
+    qv, rv = q.numpy().astype(np.float64), r.numpy().astype(np.float64)
+    assert np.linalg.norm(qv @ rv - a) / np.linalg.norm(a) <= res_tol
+    assert np.abs(qv.T @ qv - np.eye(n)).max() <= orth_tol
+    assert not np.tril(rv, -1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", GRID_MESHES)
+@pytest.mark.parametrize("m,n", [(24, 8), (19, 10), (8, 16), (256, 64)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grid_svd_on_card_matches_the_cpu(cuda_device, mesh, m, n, dtype):
+    """The QDWH SVD on the card against the port's CPU result: the same
+    iteration count, S within 1e-5 of the largest singular value in float32
+    (1e-12 in float64), and the reference's gates against numpy's float64
+    SVD (S within 50 eps s_max, ``U S V^T - A`` within 100 eps s_max, U and
+    V orthonormal within 200 eps)."""
+    card, cpu = _grids(cuda_device, mesh)
+    svd_mod = importlib.import_module("heat_tpu_torch.core.linalg.svd")
+    a = np.random.default_rng(31).standard_normal((m, n)).astype(dtype)
+    x, xc = htt.array(a, splits=(0, 1), comm=card), htt.array(a, splits=(0, 1), comm=cpu)
+    u, s, v = (t.numpy().astype(np.float64) for t in htt.linalg.svd(x))
+    sc = htt.linalg.svd(xc).S.numpy()
+    s64 = np.linalg.svd(a.astype(np.float64), compute_uv=False)
+    eps, smax = np.finfo(dtype).eps, float(s64[0])
+    assert np.abs(s - sc).max() <= (1e-5 if dtype == np.float32 else 1e-12) * smax
+    assert np.abs(s - s64).max() <= 50 * eps * smax
+    assert np.abs(u @ np.diag(s) @ v.T - a).max() <= 100 * eps * smax
+    k = min(m, n)
+    assert np.abs(u.T @ u - np.eye(k)).max() <= 200 * eps
+    assert np.abs(v.T @ v - np.eye(k)).max() <= 200 * eps
+    if m >= n:
+        htype = htt.float32 if dtype == np.float32 else htt.float64
+        assert svd_mod._grid_svd_parts(x, htype)[3] == svd_mod._grid_svd_parts(xc, htype)[3]

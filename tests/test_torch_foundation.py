@@ -40,7 +40,7 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: names of a reference module's __all__ that the port does not have yet,
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
-    "communication": {"grid_comm": "A7/A9 (2-D grid of positions)", "init_multihost": "A3b"},
+    "communication": {"init_multihost": "A3b"},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}

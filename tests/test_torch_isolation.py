@@ -59,6 +59,7 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.core.manipulations", "heat_tpu_torch.core.statistics",
         "heat_tpu_torch.core.tiling", "heat_tpu_torch.parallel.sort", "heat_tpu_torch.parallel.take",
         "heat_tpu_torch.utils", "heat_tpu_torch.utils.matrixgallery", "heat_tpu_torch.utils.profiler",
+        "heat_tpu_torch.comm._costs",
     ]
     proc = _run(
         "import importlib, sys\n"
@@ -92,6 +93,27 @@ def test_no_jax_or_heat_tpu_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "heat_tpu"), f"{path}: imports {name}"
+
+
+def test_grid_paths_run_without_jax_or_heat_tpu():
+    """The grid's layouts, SUMMA, CAQR and QDWH run with neither jax nor
+    heat_tpu imported (every import they make is lazy)."""
+    proc = _run(
+        "import sys, numpy as np, heat_tpu_torch as htt\n"
+        "comm = htt.grid_comm((2, 2), ['cpu'] * 4)\n"
+        "a = htt.array(np.random.default_rng(0).normal(size=(12, 6)).astype(np.float32), splits=(0, 1), comm=comm)\n"
+        "q, r = htt.linalg.qr(a)\n"
+        "u, s, v = htt.linalg.svd(a)\n"
+        "p = a.T.resplit((0, 1)) @ a\n"
+        "assert q.splits == (0, 1) and r.splits == (None, 1) and p.splits == (0, 1)\n"
+        "assert float(htt.linalg.norm(a)) > 0 and a.sum(0).shape == (6,)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_call_without_device_raises_without_cuda():
