@@ -157,6 +157,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``summa2d_tflops`` (2mkn), ``qr2d_tflops`` (``2mn^2 - 2n^3/3``) and
    ``svd2d_tflops`` (the reference's 12-iteration nominal,
    ``bench.py:1491-1496``) over the wall time.
+12. the base layer (telemetry and the resilience seams) on the main
+   path at FOUR positions under ``int8_block``: phase 4's (4, 2^20)
+   allreduce, the error-feedback KMeans fit (k=8, 30 steps) and its
+   predict, and the allgather of the blobs split on rows.  (1) Telemetry
+   off, their launches are exactly phases 4 and 9's for the same calls
+   (62 quantize, 93 hops, 30 dequantize_fma, 32 dequantize); on, the same
+   launches and bitwise the same results, the counters as the reference
+   counts the same calls (2 allreduce entries, the fit's one for its 30
+   rings; 1 allgather), the exact and wire bytes ``wire_model``'s, the
+   wire ratio exactly 0.2578125 after the block-aligned allreduce and
+   within 2 % of 0.258 after the fit, the ``fit:KMeans``,
+   ``predict:KMeans`` and ``commq:*`` spans once each; the allreduce's
+   wall time, device time (a CUDA graph, off and on, within the run's
+   spread) and host syncs (0 off, 1 on, 2 guarded).  (2) A trace around
+   one allreduce: valid host trace-event JSON with the ``commq:allreduce``
+   span and the issue/consume pair, and a ``torch.profiler`` device trace
+   naming the quantize, hop and dequantize kernels.  (3) NaN, +Inf, the
+   1e36 saturation and the bit-30 flip armed on the allreduce: each
+   result bitwise the plain ring's on the same corrupted input (every NaN
+   0x7fc00000), the first three unhealthy to the guard; under the guard ``raise`` raises naming ``allreduce_q``,
+   ``warn`` gives one ``GuardWarning``, ``degrade`` is bitwise
+   ``precision="f32"``'s result (a healthy call stays compressed), ``off``
+   lets the fault through, each intervention an incident and a flight
+   postmortem.  (4) ``inject("nonfinite", rate=0.3, seed=0)`` over 20
+   allreduces fires at the pinned indices.  (5) ``/metrics`` of a
+   ``MetricsServer`` on 127.0.0.1, port 0, is the Prometheus text of the
+   counters.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -264,6 +291,24 @@ RAGGED_ROWS, RAGGED_COLS = 10_007, 31
 QR2D_CPU_TOL = 1e-4
 #: float32 eps, the unit of the reference's QDWH gates (50/100/200 eps)
 EPS32 = float(np.finfo(np.float32).eps)
+#: phase 12: the call indices (0-based) of 20 allreduces at which
+#: ``inject("nonfinite", rate=0.3, seed=0)`` fires: the port's CPU run
+#: and the reference's (``tests/test_torch_resilience.py`` ties them)
+SCHEDULE_FIRES = (1, 2, 3, 11, 13, 15, 18)
+SCHEDULE_CALLS = 20
+#: phase 12: each kernel's symbol as a ``torch.profiler`` trace names it
+#: (demangled, or mangled), by its wrapper's C name
+TRACE_SYMBOLS = {
+    "blockquant_quantize": ("quantize_stream_kernel<false>", "quantize_stream_kernelILb0E"),
+    "blockquant_dequantize_add_quantize": ("quantize_stream_kernel<true>", "quantize_stream_kernelILb1E"),
+    "blockquant_dequantize": ("dequantize_kernel<false>", "dequantize_kernelILb0E"),
+}
+#: phase 12: rounds of (off, on, guarded) wall readings of allreduce_q
+PHASE12_ROUNDS = 5
+#: phase 12's armed plans, each firing on the first allreduce: NaN and
+#: +Inf written to element 0, the 1e36 saturation, the bit-30 flip
+PHASE12_FAULTS = (("nonfinite", {}), ("nonfinite", {"value": float("inf")}), ("saturate", {}),
+                  ("bitflip", {"seed": 3}))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -397,6 +442,11 @@ def device_ms(fn, argsets, per_graph: int = 32, trials: int = 9) -> float:
     """Median device time of one call: ``per_graph`` calls, rotating over
     ``argsets`` (sized past the 50 MB L2 so each call reads from HBM), are
     captured in one CUDA graph and replayed between CUDA events."""
+    return float(np.median(device_times(fn, argsets, per_graph, trials)))
+
+
+def device_times(fn, argsets, per_graph: int = 32, trials: int = 9) -> list:
+    """The ``trials`` device times of one call behind :func:`device_ms`."""
     import torch
 
     for a in argsets[:2]:
@@ -417,7 +467,7 @@ def device_ms(fn, argsets, per_graph: int = 32, trials: int = 9) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per_graph)
-    return float(np.median(times))
+    return times
 
 
 def after_ms(kernel, prep, argsets):
@@ -594,6 +644,28 @@ def ring_unfused(torch, cq, stacked, size: int):
         add = chunks[pos, (pos - s - 1) % size].reshape(-1)
         cur = cq.dequantize_fma_blocks(*payload, add).reshape(size, chunk)
     return cq.dequantize_blocks(*cq._hop(cq.quantize_blocks(cur.reshape(-1)), size))[:n]
+
+
+def ring_plain(torch, cq, stacked, size: int):
+    """The int8 ring allreduce composed of the kernels' plain PyTorch
+    versions, on the tensor's own device: the ring every faulted
+    ``allreduce_q`` of phase 12 is held to, bitwise."""
+    n = stacked.shape[1]
+    chunk = cq._padded_len(-(-n // size), BLOCK)
+    chunks = torch.nn.functional.pad(stacked, (0, size * chunk - n)).reshape(size, size, chunk)
+    pos = torch.arange(size, device=stacked.device)
+    payload = cq.quantize_blocks_plain(chunks[pos, pos].reshape(-1, BLOCK))
+    for s in range(size - 1):
+        add = chunks[pos, (pos - s - 1) % size].reshape(-1)
+        payload = cq.dequantize_add_quantize_blocks_plain(*cq._hop(payload, size), add)
+    return cq.dequantize_blocks_plain(*cq._hop(payload, size))[:n]
+
+
+def trace_kernel_names(text: str) -> set:
+    """The wrappers of :data:`TRACE_SYMBOLS` whose kernels a Chrome trace
+    (``torch.profiler``'s JSON) names."""
+    names = [str(e.get("name", "")) for e in json.loads(text).get("traceEvents", [])]
+    return {k for k, syms in TRACE_SYMBOLS.items() if any(sym in n for n in names for sym in syms)}
 
 
 # --------------------------------------------------------------------- #
@@ -2265,6 +2337,279 @@ def phase_grid(torch, htt, dev, data):
     return metrics
 
 
+# --------------------------------------------------------------------- #
+# the base layer: telemetry and the resilience seams (phase 12)          #
+# --------------------------------------------------------------------- #
+def _nan_canonical(torch, t) -> bool:
+    """Every NaN of a float32 tensor is the quiet NaN 0x7fc00000."""
+    return bool((t.view(torch.int32)[t.isnan()] == 0x7FC00000).all())
+
+
+def _get(port: int, path: str):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def phase_base_layer(torch, htt, cq, dev, data, centers, counted):
+    """Phase 12 (see the module docstring).  Returns ``(launches of the
+    disabled-mode run, metrics)``; leaves telemetry off and reset, no
+    plan armed, the guard off and no listener open."""
+    import glob
+    import os
+    import tempfile
+    import warnings
+
+    from heat_tpu_torch import telemetry as tel
+    from heat_tpu_torch.resilience import faults, guards, incidents
+    from heat_tpu_torch.telemetry import export, flight, httpz
+
+    check(not tel.is_enabled() and not faults.any_active() and guards.get_guard_policy() == "off",
+          "phase 12 starts with telemetry off, no plan armed and the guard off")
+    comm4 = htt.TorchCommunication([dev] * POSITIONS)
+    stacked = torch.from_numpy(np.random.default_rng(1).normal(size=(POSITIONS, PAYLOAD)).astype(np.float32)).to(dev)
+    X4 = htt.array(data, split=0, comm=comm4)
+    init4 = htt.array(centers, comm=comm4)
+    metrics = {}
+
+    def allreduce():
+        return comm4.allreduce(stacked, "sum")
+
+    def three_calls():
+        red = allreduce()
+        km = htt.cluster.KMeans(n_clusters=K, init=init4, max_iter=ITERS, tol=-1.0).fit(X4)
+        pred = km.predict(X4)
+        gat = comm4.allgather(X4.larray, 0)
+        torch.cuda.synchronize()
+        return [red, km.cluster_centers_.larray, km.labels_.larray, pred.larray, gat]
+
+    def launches_of(fn):
+        for f in counted:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {f"blockquant_{f.__name__.removesuffix('_blocks')}": f.launches for f in counted}
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        with cq.collective_precision("int8_block"):
+            # ---------------------------------------------------- 12.1
+            off, launches = launches_of(three_calls)
+            # phase 4's allreduce and 30-step EF fit less its three moment
+            # rings (61 / 93 / 30 / 31), and phase 9's gather (1 / 0 / 0 / 1)
+            expected = {"blockquant_quantize": 62, "blockquant_dequantize_add_quantize": 93,
+                        "blockquant_dequantize_fma": 30, "blockquant_dequantize": 32}
+            check(launches == expected, f"phase 12 disabled-mode launches {launches} != {expected}")
+            tel.enable()
+            tel.reset()
+            allreduce()
+            ratio1 = tel.snapshot()["gauges"]["comm.wire_ratio.int8_block"]
+            check(ratio1 == 0.2578125, f"phase 12 block-aligned allreduce wire ratio {ratio1} != 0.2578125")
+            tel.reset()
+            on, launches_on = launches_of(three_calls)
+            check(launches_on == expected, f"phase 12 enabled-mode launches {launches_on} != {expected}")
+            for a, b, what in zip(off, on, ("allreduce", "centers", "labels", "predict", "allgather")):
+                check(bitwise_equal(a, b), f"phase 12 {what} with telemetry on != off, bitwise")
+            agree = float((off[2] == off[3]).float().mean())
+            check(agree >= 0.9999, f"phase 12 predict agrees with the fit's labels on {agree}")
+            snap = tel.snapshot()
+            c, g, spans = snap["counters"], snap["gauges"], snap["spans"]
+            # the allreduce, then the fit's one entry for its ITERS rings
+            wm = [cq.wire_model(PAYLOAD, POSITIONS, "int8_block")]
+            wm += [cq.wire_model(K * F, POSITIONS, "int8_block")] * ITERS
+            wg = cq.wire_model(N * F // POSITIONS, POSITIONS, "int8_block", op="allgather")
+            want_exact = sum(w["exact_wire_bytes"] for w in wm) + wg["exact_wire_bytes"]
+            want_wire = sum(w["wire_bytes"] for w in wm) + wg["wire_bytes"]
+            check(c.get("comm.collectives.allreduce") == 2 and c.get("comm.collectives.allgather") == 1,
+                  f"phase 12 collective counts {c}")
+            check(c["comm.exact_bytes.int8_block"] == want_exact and c["comm.wire_bytes.int8_block"] == want_wire,
+                  f"phase 12 byte ledger {c} != wire_model's {want_exact} / {want_wire}")
+            ratio = g["comm.wire_ratio.int8_block"]
+            check(abs(ratio - 0.258) / 0.258 < 0.02, f"phase 12 wire ratio after the fit {ratio}")
+            span_counts = {k: spans.get(k, {}).get("count", 0) for k in (
+                "fit:KMeans", "predict:KMeans", "commq:allreduce", "commq:allgather",
+                "comm:allreduce_q:step:issue", "comm:allreduce_q:step:consume",
+                "comm:allgather_q:step:issue", "comm:allgather_q:step:consume")}
+            check(span_counts == {"fit:KMeans": 1, "predict:KMeans": 1, "commq:allreduce": 1,
+                                  "commq:allgather": 1, "comm:allreduce_q:step:issue": 1,
+                                  "comm:allreduce_q:step:consume": 1, "comm:allgather_q:step:issue": 1,
+                                  "comm:allgather_q:step:consume": 1}, f"phase 12 spans {span_counts}")
+            tel.disable()
+            tel.reset()
+
+            # wall and device time, host syncs: off, on, on with a guard;
+            # the host readings in PHASE12_ROUNDS alternating rounds, so
+            # drift on the shared host falls on every mode alike
+            def mode_of(mode):
+                (tel.enable if mode != "off" else tel.disable)()
+                return guards.guard("raise" if mode == "guard" else "off")
+
+            walls = {m: [] for m in ("off", "on", "guard")}
+            for _ in range(PHASE12_ROUNDS):
+                for mode in walls:
+                    with mode_of(mode):
+                        walls[mode].append(wall_ms(allreduce, reps=9))
+                    tel.disable()
+                    tel.reset()
+            for mode, ws in walls.items():
+                metrics[f"allreduce_q_{mode}_wall_ms"] = float(np.median(ws))
+                metrics[f"allreduce_q_{mode}_wall_range_ms"] = [float(min(ws)), float(max(ws))]
+                with mode_of(mode):
+                    dev_ms, syncs = profile_counts(torch, allreduce)
+                    metrics[f"allreduce_q_{mode}_profiled_device_ms"] = dev_ms
+                    metrics[f"allreduce_q_{mode}_host_syncs"] = syncs
+                    if mode != "guard":  # the guard's host read cannot be captured in a graph
+                        times = device_times(lambda: allreduce(), [()])
+                        metrics[f"allreduce_q_{mode}_device_ms"] = float(np.median(times))
+                        metrics[f"allreduce_q_{mode}_device_spread_ms"] = float(max(times) - min(times))
+                tel.disable()
+                tel.reset()
+            gap = abs(metrics["allreduce_q_on_device_ms"] - metrics["allreduce_q_off_device_ms"])
+            spread = max(metrics["allreduce_q_on_device_spread_ms"], metrics["allreduce_q_off_device_spread_ms"])
+            check(gap <= spread + 0.02 * metrics["allreduce_q_off_device_ms"],
+                  f"phase 12 device time on/off {metrics['allreduce_q_on_device_ms']:.4f} / "
+                  f"{metrics['allreduce_q_off_device_ms']:.4f} ms apart by more than the spread {spread:.4f}")
+            check((metrics["allreduce_q_off_host_syncs"], metrics["allreduce_q_on_host_syncs"],
+                   metrics["allreduce_q_guard_host_syncs"]) == (0, 1, 2),
+                  f"phase 12 host syncs off/on/guard {metrics['allreduce_q_off_host_syncs']}/"
+                  f"{metrics['allreduce_q_on_host_syncs']}/{metrics['allreduce_q_guard_host_syncs']} != 0/1/2")
+            print(f"phase 12 allreduce_q (4, 2^20): wall off / on / guarded "
+                  f"{metrics['allreduce_q_off_wall_ms']:.4f} / {metrics['allreduce_q_on_wall_ms']:.4f} / "
+                  f"{metrics['allreduce_q_guard_wall_ms']:.4f} ms (median of {PHASE12_ROUNDS} alternating "
+                  f"rounds; ranges {[metrics[f'allreduce_q_{m}_wall_range_ms'] for m in walls]}); device (graph) off / on "
+                  f"{metrics['allreduce_q_off_device_ms']:.4f} / {metrics['allreduce_q_on_device_ms']:.4f} ms "
+                  f"(spread {spread:.4f}); profiled device off / on / guarded "
+                  f"{metrics['allreduce_q_off_profiled_device_ms']:.4f} / "
+                  f"{metrics['allreduce_q_on_profiled_device_ms']:.4f} / "
+                  f"{metrics['allreduce_q_guard_profiled_device_ms']:.4f} ms; host syncs 0 / 1 / 2")
+            print(f"phase 12 counters: allreduce {c['comm.collectives.allreduce']}, allgather "
+                  f"{c['comm.collectives.allgather']}, exact {want_exact} B, wire {want_wire} B, ratio "
+                  f"{ratio!r} (block-aligned allreduce {ratio1!r}); spans {span_counts}")
+
+            # ---------------------------------------------------- 12.2
+            host_path = f"{tmp.name}/host.json"
+            export.start_trace(host_path, device_trace_dir=f"{tmp.name}/device")
+            try:
+                allreduce()
+            finally:
+                export.stop_trace()
+                tel.disable()
+                tel.reset()
+            host = json.loads(open(host_path).read())["traceEvents"]
+            names = {e["name"] for e in host}
+            check({"commq:allreduce", "comm:allreduce_q:step:issue", "comm:allreduce_q:step:consume"} <= names
+                  and all({"ph", "ts", "name", "pid"} <= set(e) for e in host),
+                  f"phase 12 host trace events {sorted(names)}")
+            dev_traces = sorted(glob.glob(f"{tmp.name}/device/device-*.json"))
+            check(len(dev_traces) == 1, "phase 12: no device trace written")
+            found = trace_kernel_names(open(dev_traces[0]).read())
+            check(found == set(TRACE_SYMBOLS), f"phase 12 device trace names {sorted(found)} of {sorted(TRACE_SYMBOLS)}")
+            print(f"phase 12 trace: host {len(host)} events; device trace names {sorted(found)}")
+
+            # ---------------------------------------------------- 12.3
+            for kind, kw in PHASE12_FAULTS:
+                with faults.inject(kind, nth=1, **kw):
+                    got = allreduce()
+                with faults.inject(kind, nth=1, **kw):
+                    if kind == "bitflip":
+                        want = faults.comm_output("allreduce_q", ring_plain(torch, cq, stacked, POSITIONS))
+                    else:
+                        want = ring_plain(torch, cq, faults.comm_input("allreduce_q", stacked), POSITIONS)
+                check(bitwise_equal(got, want), f"phase 12 {kind} {kw}: the faulted ring != the plain ring, bitwise")
+                check(_nan_canonical(torch, got), f"phase 12 {kind} {kw}: a NaN other than 0x7fc00000")
+                check(kind == "bitflip" or not guards.is_healthy(got), f"phase 12 {kind} {kw}: the fault did not show")
+                print(f"phase 12 fault {kind} {kw}: bitwise the plain ring; non-finite values "
+                      f"{int((~torch.isfinite(got)).sum())}, max |finite| "
+                      f"{float(got[torch.isfinite(got)].abs().max()):.4g}")
+            exact = cq.allreduce_q(stacked, comm=comm4, precision="f32")
+            compressed = allreduce()
+            incidents.clear_incident_log()
+            prior_dir = flight.dump_dir()
+            flight.set_dump_dir(f"{tmp.name}/flight")
+            try:
+                with guards.guard("raise"), faults.inject("saturate", nth=1):
+                    try:
+                        allreduce()
+                        raised = ""
+                    except guards.NumericalHealthError as e:
+                        raised = str(e)
+                check("allreduce_q" in raised, "phase 12 guard 'raise' did not raise naming allreduce_q")
+                with guards.guard("warn"), faults.inject("saturate", nth=1):
+                    with warnings.catch_warnings(record=True) as w:
+                        warnings.simplefilter("always")
+                        warned = allreduce()
+                n_warn = sum(issubclass(x.category, guards.GuardWarning) for x in w)
+                check(n_warn == 1 and not guards.is_healthy(warned),
+                      f"phase 12 guard 'warn': {n_warn} GuardWarnings")
+                with guards.guard("degrade"), faults.inject("saturate", nth=1):
+                    degraded = allreduce()
+                    healthy = allreduce()
+                check(bitwise_equal(degraded, exact), "phase 12 guard 'degrade' != precision='f32', bitwise")
+                check(bitwise_equal(healthy, compressed), "phase 12 a healthy guarded call != the compressed one")
+                with guards.guard("off"), faults.inject("saturate", nth=1):
+                    passed = allreduce()
+                check(not guards.is_healthy(passed), "phase 12 guard 'off' stopped the fault")
+                log = incidents.incident_log()
+                check([(i.site, i.policy, i.action) for i in log] == [
+                    ("allreduce_q", "raise", "raised"), ("allreduce_q", "warn", "warned"),
+                    ("allreduce_q", "degrade", "degraded")], f"phase 12 incidents {[i.render() for i in log]}")
+                dumps = sorted(os.listdir(f"{tmp.name}/flight"))
+                last = json.loads(open(f"{tmp.name}/flight/{dumps[-1]}").read())
+                check(len(dumps) == 3 and last["kind"] == "heat_tpu-flight-postmortem"
+                      and last["incident"]["action"] == "degraded"
+                      and any("degraded" in r for r in last["incident_log"]),
+                      f"phase 12 flight dumps {dumps}")
+            finally:
+                flight.set_dump_dir(prior_dir)
+                incidents.clear_incident_log()
+            print(f"phase 12 guards: raise named allreduce_q; warn gave 1 GuardWarning; degrade bitwise "
+                  f"precision='f32'; off let the fault through; incidents {[i.action for i in log]}; "
+                  f"postmortems {dumps}")
+
+            # ---------------------------------------------------- 12.4
+            fires = []
+            with faults.inject("nonfinite", rate=0.3, seed=0) as plan:
+                for i in range(SCHEDULE_CALLS):
+                    if not bool(torch.isfinite(allreduce()[:BLOCK]).all()):
+                        fires.append(i)
+            check(tuple(fires) == SCHEDULE_FIRES and plan.calls == SCHEDULE_CALLS,
+                  f"phase 12 seeded schedule fired at {fires}, pinned {SCHEDULE_FIRES}")
+            print(f"phase 12 seeded schedule: fired at {fires} of {SCHEDULE_CALLS} (pinned)")
+
+            # ---------------------------------------------------- 12.5
+            tel.enable()
+            tel.reset()
+            try:
+                allreduce()
+                comm4.allgather(X4.larray, 0)
+                with tel.MetricsServer(port=0) as srv:
+                    status, body = _get(srv.port, "/metrics")
+                    health = _get(srv.port, "/healthz")
+                text = httpz.prometheus_text()
+            finally:
+                tel.disable()
+                tel.reset()
+            check(status == 200 and health == (200, "ok\n"), f"phase 12 /metrics {status}, /healthz {health}")
+            want_lines = {"heat_comm_collectives_allreduce_total 1", "heat_comm_collectives_allgather_total 1",
+                          f"heat_comm_wire_ratio_int8_block {float(0.2578125)!r}"}
+            lines = set(body.splitlines())
+            check(want_lines <= lines and body == text, f"phase 12 /metrics lacks {sorted(want_lines - lines)}")
+            print(f"phase 12 /metrics on 127.0.0.1:{srv.port}: {len(lines)} lines, {sorted(want_lines)}")
+    finally:
+        tmp.cleanup()
+        faults.clear()
+        guards.set_guard_policy("off")
+        tel.disable()
+        tel.reset()
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -2457,6 +2802,15 @@ def run(dev, out_path=None) -> int:
     t11 = time.perf_counter()
     grid_metrics = phase_grid(torch, htt, dev, data)
     grid_metrics["phase11_s"] = time.perf_counter() - t11
+    # ---------------------------------------------------------------- 12
+    t12 = time.perf_counter()
+    base_launches, base_metrics = phase_base_layer(torch, htt, cq, dev, data, centers, counted)
+    base_metrics["phase12_s"] = time.perf_counter() - t12
+    for row in kernel_rows:
+        if row["name"] in base_launches:
+            row["launches_by_phase"]["12"] = base_launches[row["name"]]
+            row["launches"] += base_launches[row["name"]]
+    print(f"phase 12: {base_metrics['phase12_s']:.1f} s; launches {base_launches}")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -2474,6 +2828,7 @@ def run(dev, out_path=None) -> int:
         **api_metrics,
         **sort_metrics,
         **grid_metrics,
+        **base_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

@@ -8,7 +8,11 @@ SVD, cg, lanczos), graph Laplacians, the estimators (KMeans, KMedians,
 KMedoids, Spectral, Lasso, GaussianNB, KNN), with the block-scaled int8
 collectives as hand-written CUDA
 kernels for Hopper (``csrc/``); and attention (``parallel``): flash,
-ring and Ulysses attention on the hand-written flash kernels.  Arrays live on the GPU by default; the
+ring and Ulysses attention on the hand-written flash kernels; and the base
+layer beneath them (``telemetry``: spans, counters, the byte ledger,
+histograms, SLOs, the flight recorder, Perfetto export and ``/metrics``;
+``resilience``: incidents, retries, seeded fault injection and the
+collective guards).  Arrays live on the GPU by default; the
 CPU is used only when asked for (``use_device("cpu")``, ``device="cpu"``
 or a communicator of CPU positions).
 
@@ -35,3 +39,5 @@ from . import spatial  # noqa: E402
 from . import parallel  # noqa: E402
 from . import interop  # noqa: E402
 from . import utils  # noqa: E402
+from . import telemetry  # noqa: E402
+from . import resilience  # noqa: E402

@@ -11,8 +11,9 @@ selection-matrix product ``one_hot(labels).T @ X``.
 Under a compressing collective policy on a row-split input over several
 positions, each step's ``(k, f)`` per-position centroid sums ride the
 quantized ring with an error-feedback residual in the carry, while the
-``(k,)`` counts combine exactly.  Checkpointing and mini-batch fits are
-not ported yet.
+``(k,)`` counts combine exactly.  With telemetry on, the fit credits the
+byte ledger with all of the loop's rings in one entry, as the
+reference's does.  Checkpointing and mini-batch fits are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
+from ..telemetry import _core as _tel
 from ._kcluster import _KCluster, _quadratic_cdist
 
 __all__ = ["KMeans"]
@@ -137,6 +139,13 @@ class KMeans(_KCluster):
             it, centers, _, _ = KMeans._fit_segment_q(
                 blocks, tol, stop, (0, centers0, float("inf"), error0), mode=mode
             )
+            if _tel.enabled and it > 0:
+                from ..comm import compressed as _cq
+
+                # the loop runs its rings on the ring primitive, below
+                # allreduce_q's accounting: credit the ledger here, one
+                # entry for the loop's ``it`` rings of k*f values
+                _cq._account_wire("allreduce", mode, k * f, p, reps=it)
         else:
             it, centers, _ = KMeans._fit_segment(arr, tol, stop, (0, centers0, float("inf")))
 

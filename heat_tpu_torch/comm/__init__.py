@@ -1,4 +1,5 @@
-"""Compressed collectives and their wire-cost model."""
+"""Compressed collectives, their wire-cost model, and the ring-dispatch
+telemetry (``overlap``)."""
 
-from . import compressed
+from . import compressed, overlap
 from .compressed import *  # noqa: F401,F403

@@ -34,6 +34,17 @@ bitwise equal to it and is not.
 Precision policy: a process-wide mode (``"f32"`` | ``"bf16"`` |
 ``"int8_block"`` | ``"auto"``) consulted by the communicator's allreduce
 and the reductions; ``"f32"`` (the default) keeps every collective exact.
+
+At the host boundary of :func:`allreduce_q` and :func:`allgather_q` sit
+the reference's seams, each one predicate while off: the fault seams
+(``resilience.faults.comm_input`` on the payload, ``comm_output`` on the
+result), the ``commq:allreduce``/``commq:allgather`` telemetry spans
+around the ring's issue/consume pair with the exact-vs-wire byte ledger
+from :func:`wire_model`, and the numerical health guard, whose
+``"degrade"`` re-runs the call at ``precision="f32"`` on the original
+operands.  The ring primitives (``ring_allreduce_q`` & co.) carry none of
+them, as in the reference: the estimators' error-feedback loops credit
+the ledger once per loop themselves.
 """
 
 from __future__ import annotations
@@ -48,7 +59,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.communication import sanitize_comm
+from ..resilience import faults as _faults
+from ..resilience import guards as _guards
+from ..telemetry import _core as _tel
 from . import _costs
+from .overlap import timed_dispatch
 
 __all__ = [
     "BLOCK",
@@ -607,11 +622,40 @@ def allreduce_q(
         if error is None:
             return array[0]
         return array[0] + error[0].to(array.dtype), torch.zeros_like(error)
+    has_err = error is not None
+    # the fault seams and the guard sit at the host boundary, around the
+    # ring's kernels; each costs one predicate while nothing is armed
+    payload = _faults.comm_input("allreduce_q", array) if _faults.any_active() else array
+    if _tel.enabled:
+        _account_wire("allreduce", mode, math.prod(array.shape[1:]), p)
+        with _tel.span("commq:allreduce", mode=mode or "f32", mesh=p):
+            out = timed_dispatch("allreduce_q", False, lambda: _allreduce_ring(payload, error, p, mode, blk))
+    else:
+        out = _allreduce_ring(payload, error, p, mode, blk)
+    if _faults.any_active():
+        if has_err:
+            out = (_faults.comm_output("allreduce_q", out[0]), out[1])
+        else:
+            out = _faults.comm_output("allreduce_q", out)
+    if mode is not None and _guards.active():
+        if not _guards.is_healthy(*(out if has_err else (out,))):
+            def _exact():
+                # bit-identical to what set_collective_precision("f32")
+                # would have produced for THIS call, on the original
+                # (pre-injection) operands
+                return allreduce_q(array, op, comm, precision="f32", error=error, block=block)
+
+            return _guards.handle("allreduce_q", out, _exact)
+    return out
+
+
+def _allreduce_ring(x: torch.Tensor, error: Optional[torch.Tensor], p: int, mode: Optional[str], blk: int):
+    """The ring of :func:`allreduce_q` at ``p > 1`` positions."""
     if error is None:
-        return ring_allreduce_q(array, size=p, mode=mode, block=blk)
-    if mode is None:
-        return (array + error.to(array.dtype)).sum(dim=0), torch.zeros_like(error)
-    return ring_allreduce_q_ef(array, error, size=p, mode=mode, block=blk)
+        return ring_allreduce_q(x, size=p, mode=mode, block=blk)
+    if mode is None:  # exact transmission: the residual is zero
+        return (x + error.to(x.dtype)).sum(dim=0), torch.zeros_like(error)
+    return ring_allreduce_q_ef(x, error, size=p, mode=mode, block=blk)
 
 
 def allgather_q(
@@ -627,14 +671,37 @@ def allgather_q(
     comm = sanitize_comm(comm)
     p = comm.size
     mode = reduce_mode(array.dtype, _payload_nbytes(array, stacked=False), precision)
-    if mode is None or p == 1 or array.ndim == 0:
-        return array
+    if mode is None or p == 1 or array.ndim == 0 or int(array.shape[int(axis) % array.ndim]) % p:
+        # pinned to "f32": an explicit precision="f32" (the guard's degrade
+        # path) must not bounce back through the communicator's policy seam
+        with collective_precision("f32"):
+            return comm.allgather(array, axis=axis)
     axis = int(axis) % array.ndim
-    if int(array.shape[axis]) % p:
-        return array
-    moved = array.movedim(axis, 0)
+    blk = int(block or BLOCK)
+    payload = _faults.comm_input("allgather_q", array) if _faults.any_active() else array
+    if _tel.enabled:
+        _account_wire("allgather", mode, array.numel() // p, p)
+        with _tel.span("commq:allgather", mode=mode, mesh=p):
+            out = timed_dispatch("allgather_q", False, lambda: _allgather_ring(payload, axis, p, mode, blk))
+    else:
+        out = _allgather_ring(payload, axis, p, mode, blk)
+    if _faults.any_active():
+        out = _faults.comm_output("allgather_q", out)
+    if _guards.active() and not _guards.is_healthy(out):
+        # the exact all-gather is precisely the "f32" policy's path
+        return _guards.handle(
+            "allgather_q", out,
+            lambda: allgather_q(array, axis=axis, comm=comm, precision="f32"),
+        )
+    return out
+
+
+def _allgather_ring(x: torch.Tensor, axis: int, p: int, mode: str, blk: int) -> torch.Tensor:
+    """The ring of :func:`allgather_q`: ``x``'s ``p`` shards along ``axis``
+    each quantized once."""
+    moved = x.movedim(axis, 0)
     blocks = moved.reshape((p, moved.shape[0] // p) + tuple(moved.shape[1:]))
-    full = ring_allgather_q(blocks, size=p, mode=mode, block=int(block or BLOCK))
+    full = ring_allgather_q(blocks, size=p, mode=mode, block=blk)
     return full.reshape(moved.shape).movedim(0, axis)
 
 
@@ -642,6 +709,16 @@ def wire_model(n_elems: int, size: int, mode: Optional[str], *,
                block: int = BLOCK, op: str = "allreduce") -> dict:
     """Bytes-moved model for one ring collective, per position."""
     return _costs.ring_wire_model(n_elems, size, mode, block=block, op=op)
+
+
+def _account_wire(op: str, mode: Optional[str], n_elems: int, size: int,
+                  reps: int = 1) -> None:
+    """Credit ``reps`` ring invocations to the telemetry byte ledger from
+    :func:`wire_model` (callers hold the ``_tel.enabled`` predicate)."""
+    wm = wire_model(n_elems, size, mode, op=op)
+    _tel.account_bytes(
+        op, mode or "f32", wm["exact_wire_bytes"] * reps, wm["wire_bytes"] * reps
+    )
 
 
 # --------------------------------------------------------------------- #

@@ -2,13 +2,19 @@
 ``ClusteringMixin``, ``RegressionMixin``, ``TransformMixin`` and the
 ``is_*`` predicates.
 
-Port of ``heat_tpu/core/base.py`` without its telemetry span wrapping.
+Port of ``heat_tpu/core/base.py``, with its telemetry span wrapping:
+every subclass's ``fit``/``predict`` reports a ``fit:<Class>`` /
+``predict:<Class>`` span under the class it is called on.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
+import types as _types
 from typing import Any, Dict
+
+from ..telemetry import _core as _tel
 
 __all__ = [
     "BaseEstimator",
@@ -24,8 +30,40 @@ __all__ = [
 ]
 
 
+def _spanned_method(meth, label: str):
+    """Wrap an estimator entry point in a telemetry span.
+
+    The wrapper is a single flag predicate per call while telemetry is
+    disabled; enabled, every ``fit``/``predict`` lands in the per-site
+    span aggregates under ``fit:<ClassName>`` / ``predict:<ClassName>``
+    (the class is resolved at call time, so subclasses inheriting a
+    wrapped method report under their own name)."""
+
+    @functools.wraps(meth)
+    def wrapper(self, *args, **kwargs):
+        if not _tel.enabled:
+            return meth(self, *args, **kwargs)
+        with _tel.span(f"{label}:{type(self).__name__}"):
+            return meth(self, *args, **kwargs)
+
+    wrapper._telemetry_wrapped = True
+    return wrapper
+
+
 class BaseEstimator:
     """Base class of every estimator: introspective parameters."""
+
+    def __init_subclass__(cls, **kwargs):
+        # every concrete estimator's fit/predict emits a telemetry span
+        # automatically — no per-estimator instrumentation to forget
+        super().__init_subclass__(**kwargs)
+        for name in ("fit", "predict"):
+            meth = cls.__dict__.get(name)
+            if (
+                isinstance(meth, _types.FunctionType)
+                and not getattr(meth, "_telemetry_wrapped", False)
+            ):
+                setattr(cls, name, _spanned_method(meth, name))
 
     @classmethod
     def _parameter_names(cls):

@@ -30,11 +30,14 @@ positions as one flat ring of ``size``.
 from __future__ import annotations
 
 import math
+import os
+import sys
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..telemetry import _core as _tel
 from . import devices
 
 __all__ = [
@@ -66,6 +69,23 @@ def _torch_device(d: Union[str, torch.device]) -> torch.device:
 
 def _nbytes(array: torch.Tensor) -> int:
     return array.numel() * array.element_size()
+
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _user_stacklevel() -> int:
+    """``warnings.warn`` stacklevel attributing to the first frame OUTSIDE
+    the package (the reference's ``communication._user_stacklevel``): a
+    warning raised behind a wrapper still points at the user's line."""
+    level = 2  # stacklevel=2 == the caller of the method that warns
+    frame = sys._getframe(2)  # 0=this helper, 1=the warning method, 2=its caller
+    while frame is not None and os.path.abspath(frame.f_code.co_filename).startswith(
+        _PKG_DIR + os.sep
+    ):
+        frame = frame.f_back
+        level += 1
+    return level
 
 
 class TorchCommunication(Communication):
@@ -354,6 +374,18 @@ class TorchCommunication(Communication):
             mode = _cq.reduce_mode(array.dtype, _nbytes(array) // n)
             if mode is not None:
                 return _cq.allreduce_q(array, op=op, comm=self, precision=mode)
+        if _tel.enabled:
+            from ..comm.compressed import _account_wire
+
+            elems = math.prod(array.shape[1:]) if array.ndim > 1 else 1
+            _account_wire("allreduce", None, elems, n)
+            with _tel.span("comm:allreduce", op=op, mesh=n):
+                return self._combine(array, op)
+        return self._combine(array, op)
+
+    @staticmethod
+    def _combine(array: torch.Tensor, op: str) -> torch.Tensor:
+        if op == "sum":
             return array.sum(dim=0)
         if op == "prod":
             return array.prod(dim=0)
@@ -373,7 +405,23 @@ class TorchCommunication(Communication):
             mode = _cq.reduce_mode(array.dtype, _nbytes(array))
             if mode is not None and int(array.shape[axis]) % self.size == 0:
                 return _cq.allgather_q(array, axis=axis, comm=self, precision=mode)
+            # ledger + span only when traffic would move: a replicated
+            # input (axis None) makes the exact gather a no-op
+            if _tel.enabled:
+                _cq._account_wire("allgather", None, array.numel() // self.size, self.size)
+                with _tel.span("comm:allgather", mesh=self.size):
+                    # the global tensor already holds every shard
+                    return self._reshard(lambda: array)
         return array
+
+    @staticmethod
+    def _reshard(relayout):
+        """``relayout()``, a change of layout at rest, counted under
+        ``comm.reshards`` and a ``comm:reshard`` span as the reference's
+        reshard is.  Callers hold the telemetry predicate."""
+        _tel.inc("comm.reshards")
+        with _tel.span("comm:reshard"):
+            return relayout()
 
     def resplit(self, array: torch.Tensor, split) -> torch.Tensor:
         """The at-rest form of a TRUE-shape global tensor laid out at
@@ -382,6 +430,11 @@ class TorchCommunication(Communication):
         dimension over its mesh axis (:meth:`pad_to_shards` ``splits=``)."""
         if split is None or array.ndim == 0:
             return array
+        if _tel.enabled and self.size > 1:
+            return self._reshard(lambda: self._pad_to(array, split))
+        return self._pad_to(array, split)
+
+    def _pad_to(self, array: torch.Tensor, split) -> torch.Tensor:
         if isinstance(split, (tuple, list)) or self.mesh_ndim > 1:
             return self.pad_to_shards(array, splits=self.normalize_splits(array.ndim, split))
         return self.pad_to_shards(array, axis=int(split) % array.ndim)

@@ -18,9 +18,12 @@ coordinate update keeps the residual incremental (``resid -= x_j *
 delta_j``) and computes ``rho_j = mean(x_j * (resid + x_j theta_j))`` as
 ``(x_j . resid + theta_j |x_j|^2) / n``.
 
+With telemetry on, the quantized ISTA loop credits the byte ledger with
+all of its rings in one entry, as the reference's does.
+
 Not ported: streaming ``mini_batch`` fits (ROADMAP queue A, item 12) and
 ``checkpoint_every``/``resume`` (item 16), which raise
-``NotImplementedError``; telemetry spans.
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..core import factories, types
 from ..core.base import BaseEstimator, RegressionMixin
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in, sanitize_predict_in
+from ..telemetry import _core as _tel
 
 __all__ = ["Lasso"]
 
@@ -238,6 +242,10 @@ class Lasso(RegressionMixin, BaseEstimator):
             it += 1
             if not bool(delta > tol):
                 break
+        if mode is not None and _tel.enabled and it > 0:
+            # the ring primitive sits below allreduce_q's accounting: one
+            # ledger entry for the loop's ``it`` rings of m values
+            _cq._account_wire("allreduce", mode, m, p, reps=it)
         return theta, it
 
     def predict(self, x: DNDarray) -> DNDarray:

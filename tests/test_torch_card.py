@@ -44,6 +44,14 @@ card's ``log1p`` not being the CPU's); the comparison operators give card
 arrays; KMedians' bisection at 2^17 rows equals ``numpy.median``; an
 int64 2048^3 product equals the exact one with its transients under
 ``INT_MATMUL_BUDGET``.
+
+The base layer: under each armed fault (NaN, Inf, the 1e36 saturation,
+the bit-30 flip) the card's int8 ring at 4 and 8 positions is bitwise the
+plain ring's on the CPU; a guarded ``allreduce_q`` reads one scalar from
+the card and an unguarded one none; telemetry on or off launches the same
+kernels with bitwise equal results; and ``start_trace(...,
+device_trace_dir=...)`` writes a ``torch.profiler`` trace that names the
+quantize, hop and dequantize kernels.
 """
 
 import importlib
@@ -876,3 +884,108 @@ def test_grid_svd_on_card_matches_the_cpu(cuda_device, mesh, m, n, dtype):
     if m >= n:
         htype = htt.float32 if dtype == np.float32 else htt.float64
         assert svd_mod._grid_svd_parts(x, htype)[3] == svd_mod._grid_svd_parts(xc, htype)[3]
+
+
+# --------------------------------------------------------------------- #
+# the base layer on the card: faults through the kernels, the guard's   #
+# host read, telemetry's disabled mode, the profiler's device trace     #
+# --------------------------------------------------------------------- #
+FAULTS = [("nonfinite", {}), ("nonfinite", {"value": float("inf")}), ("saturate", {}),
+          ("bitflip", {"seed": 3})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [4, 8])
+@pytest.mark.parametrize("kind,kw", FAULTS, ids=str)
+def test_faulted_ring_on_card_bitwise_plain_ring(cuda_device, p, kind, kw):
+    """Under each armed plan the card's ring (B1, the hop, B2) is bitwise
+    the plain ring's on the CPU on the same corrupted input: the seams
+    corrupt before the kernels and after them, never inside."""
+    from heat_tpu_torch.resilience import faults, guards
+
+    x = torch.from_numpy(np.random.default_rng(p).normal(size=(p, 64 * BLOCK)).astype(np.float32))
+    card = htt.TorchCommunication([cuda_device] * p)
+    cpu = htt.TorchCommunication(["cpu"] * p)
+    with faults.inject(kind, nth=1, **kw):
+        got = tcq.allreduce_q(x.to(cuda_device), comm=card, precision="int8_block")
+    with faults.inject(kind, nth=1, **kw):
+        want = tcq.allreduce_q(x, comm=cpu, precision="int8_block")
+    assert _bitwise(got.cpu(), want)
+    assert kind == "bitflip" or not guards.is_healthy(got)
+
+
+def _scalar_reads(fn) -> int:
+    """Device-to-host scalar reads (``aten::_local_scalar_dense``) of one
+    call of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(int(e.count) for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+
+
+@pytest.mark.gpu
+def test_guard_reads_one_scalar_a_call(cuda_device):
+    from heat_tpu_torch.resilience import guards
+
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(4, 64 * BLOCK)).astype(np.float32))
+    x = x.to(cuda_device)
+    call = lambda: tcq.allreduce_q(x, comm=comm, precision="int8_block")  # noqa: E731
+    assert _scalar_reads(call) == 0
+    for policy in ("raise", "warn", "degrade"):
+        with guards.guard(policy):
+            assert _scalar_reads(call) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [4, 8])
+def test_disabled_telemetry_keeps_the_launch_counts(cuda_device, p):
+    from heat_tpu_torch import telemetry
+
+    comm = htt.TorchCommunication([cuda_device] * p)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(p, 64 * BLOCK)).astype(np.float32))
+    x = x.to(cuda_device)
+    counted = (tcq.quantize_blocks, tcq.dequantize_add_quantize_blocks, tcq.dequantize_blocks,
+               tcq.dequantize_fma_blocks)
+    results, counts = [], []
+    was = telemetry.is_enabled()
+    try:
+        for on in (False, True):
+            (telemetry.enable if on else telemetry.disable)()
+            for fn in counted:
+                fn.launches = 0
+            results.append(tcq.allreduce_q(x, comm=comm, precision="int8_block"))
+            counts.append([fn.launches for fn in counted])
+    finally:
+        (telemetry.enable if was else telemetry.disable)()
+        telemetry.reset()
+    assert counts[0] == counts[1] == [1, p - 1, 1, 0]
+    assert _bitwise(results[0], results[1])
+
+
+@pytest.mark.gpu
+def test_device_trace_names_the_blockquant_kernels(cuda_device, tmp_path):
+    from heat_tpu_torch import telemetry
+    from heat_tpu_torch.telemetry import export
+
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(4, 1 << 18)).astype(np.float32))
+    x = x.to(cuda_device)
+    tcq.allreduce_q(x, comm=comm, precision="int8_block")
+    torch.cuda.synchronize()
+    was = telemetry.is_enabled()
+    try:
+        export.start_trace(str(tmp_path / "host.json"), device_trace_dir=str(tmp_path / "dev"))
+        try:
+            tcq.allreduce_q(x, comm=comm, precision="int8_block")
+        finally:
+            export.stop_trace()
+    finally:
+        (telemetry.enable if was else telemetry.disable)()
+        telemetry.reset()
+    (dev,) = list((tmp_path / "dev").iterdir())
+    names = chip_smoke.trace_kernel_names(dev.read_text())
+    assert set(chip_smoke.TRACE_SYMBOLS) <= names

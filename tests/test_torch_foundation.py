@@ -41,6 +41,10 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
     "communication": {"init_multihost": "A3b"},
+    # the base layer: the names of the resume and elastic modules
+    "resilience": {n: "A16b" for n in (
+        "resume", "elastic", "LoopCheckpointer", "MeshMismatchError", "save_loop_state",
+        "load_loop_state", "DeadlineWatchdog", "grow", "recover", "set_watchdog")},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
@@ -55,6 +59,31 @@ PORTED_MODULES = [
     "exponential", "logical", "relational", "rounding", "statistics", "trigonometrics", "random",
     "linalg.basics", "linalg.qr", "linalg.svd", "linalg.solver", "manipulations", "tiling",
 ]
+
+
+#: the base layer's packages and modules, against the reference's
+#: ``__all__`` less their ``WAITING`` names
+BASE_MODULES = [
+    "telemetry", "telemetry._core", "telemetry.hist", "telemetry.flight", "telemetry.slo",
+    "telemetry.export", "telemetry.httpz", "net._base", "resilience", "resilience.faults",
+    "resilience.guards", "resilience.incidents", "resilience.retry", "resilience.fixtures",
+]
+
+
+@pytest.mark.parametrize("name", BASE_MODULES)
+def test_base_layer_surface_equals_reference_less_waiting_names(name):
+    ref = importlib.import_module(f"heat_tpu.{name}")
+    mine = importlib.import_module(f"heat_tpu_torch.{name}")
+    want = set(ref.__all__) - set(WAITING.get(name, {}))
+    assert set(mine.__all__) == want
+    for n in mine.__all__:
+        assert hasattr(mine, n), n
+
+
+def test_package_exports_telemetry_and_resilience():
+    assert htt.telemetry is importlib.import_module("heat_tpu_torch.telemetry")
+    assert htt.resilience is importlib.import_module("heat_tpu_torch.resilience")
+    assert htt.resilience.retry is importlib.import_module("heat_tpu_torch.resilience.retry")
 
 
 @pytest.mark.parametrize("name", PORTED_MODULES)

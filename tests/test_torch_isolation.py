@@ -59,7 +59,13 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.core.manipulations", "heat_tpu_torch.core.statistics",
         "heat_tpu_torch.core.tiling", "heat_tpu_torch.parallel.sort", "heat_tpu_torch.parallel.take",
         "heat_tpu_torch.utils", "heat_tpu_torch.utils.matrixgallery", "heat_tpu_torch.utils.profiler",
-        "heat_tpu_torch.comm._costs",
+        "heat_tpu_torch.comm._costs", "heat_tpu_torch.comm.overlap",
+        "heat_tpu_torch.telemetry", "heat_tpu_torch.telemetry._core", "heat_tpu_torch.telemetry.hist",
+        "heat_tpu_torch.telemetry.flight", "heat_tpu_torch.telemetry.slo", "heat_tpu_torch.telemetry.export",
+        "heat_tpu_torch.telemetry.httpz", "heat_tpu_torch.net", "heat_tpu_torch.net._base",
+        "heat_tpu_torch.resilience", "heat_tpu_torch.resilience.incidents",
+        "heat_tpu_torch.resilience.retry", "heat_tpu_torch.resilience.faults",
+        "heat_tpu_torch.resilience.guards", "heat_tpu_torch.resilience.fixtures",
     ]
     proc = _run(
         "import importlib, sys\n"
@@ -107,6 +113,29 @@ def test_grid_paths_run_without_jax_or_heat_tpu():
         "p = a.T.resplit((0, 1)) @ a\n"
         "assert q.splits == (0, 1) and r.splits == (None, 1) and p.splits == (0, 1)\n"
         "assert float(htt.linalg.norm(a)) > 0 and a.sum(0).shape == (6,)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_base_layer_runs_without_jax_or_heat_tpu():
+    """Telemetry on, a fault armed and a guard set around an int8 ring on
+    CPU positions, with neither jax nor heat_tpu imported."""
+    proc = _run(
+        "import sys, torch, heat_tpu_torch as htt\n"
+        "from heat_tpu_torch.comm import compressed as cq\n"
+        "htt.telemetry.enable()\n"
+        "comm = htt.TorchCommunication(['cpu'] * 4)\n"
+        "x = torch.ones(4, 256)\n"
+        "with htt.resilience.guard('degrade'), htt.resilience.inject('saturate', nth=1):\n"
+        "    out = cq.allreduce_q(x, comm=comm, precision='int8_block')\n"
+        "assert torch.equal(out, x.sum(0))\n"
+        "assert [i.action for i in htt.resilience.incident_log()] == ['degraded']\n"
+        "assert htt.telemetry.snapshot()['spans']['commq:allreduce']['count'] == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
         "assert not bad, bad\n"
