@@ -185,6 +185,39 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``MetricsServer`` on 127.0.0.1, port 0, is the Prometheus text of the
    counters.
 
+13. IO, the out-of-core stream, snapshots and resume, at the reference
+   benchmark's stream configuration (``bench.py:2715-2719``): the blobs'
+   first 200 000 rows (25.6 MB), 8 chunks of 25 000 rows an epoch, 2
+   epochs, k = 8.  (1) The rows and the Lasso target written as NetCDF-3
+   and CSV (and HDF5 where ``h5py`` imports) and read back onto the card,
+   bitwise; (2) the native CSV scanner must have built, and ``load_csv``
+   is timed; one NetCDF-3 read of the slab and one pinned copy of it to
+   the card give the host's read and copy rates (``stream_model``'s
+   defaults).  (3) ``KMeans(mini_batch=25 000)`` and ``Lasso(solver="gd",
+   mini_batch=25 000)`` (lam 0.1, y as ``bench.py`` lasso_rate builds it)
+   from the file with prefetch off and on, and from the in-memory rows:
+   all three bitwise equal, the slab peaks 1 and 2, their wall times the
+   medians of 5 alternating rounds; KMeans' chunk updates
+   replayed one by one on the card (bitwise the fit), each held to a
+   float64 update with the card's labels within 1e-3 of its largest
+   center, its labels float64's off near ties (1e-4 of the distance);
+   Lasso within 1e-3 of its largest coefficient of a float64 replay;
+   rows a second, the measured overlap (off over on) beside
+   ``stream_model``'s prediction from this run's read, copy and chunk
+   times.  (4) Where ``h5py`` imports (else the phase says
+   ``phase 13: hdf5 absent, snapshots not run``): ``int8_block`` KMeans (30
+   steps, a snapshot every 10) and Lasso gd (1000 steps, every 250) at FOUR
+   positions, each killed by a seeded preemption after its second
+   snapshot and resumed, bitwise the uninterrupted fit, the killed and
+   resumed pair launching exactly what the uninterrupted fit launches
+   (Lasso: phase 7's 2000 quantize, 3000 hops, 1000 dequantize_fma, 1000
+   dequantize); the mini-batch KMeans at FOUR positions losing a position
+   after its first epoch's snapshot and recovered by ``elastic.recover``
+   at TWO, bitwise the uninterrupted 2-position fit; an estimator saved
+   and loaded, its predictions equal.  Each step prints its wall time and
+   device time (one call under ``torch.profiler``), and the phase
+   ``phase13_s``.
+
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
 output type of the plain version, the ulp taken at each output row's
@@ -305,6 +338,28 @@ TRACE_SYMBOLS = {
 }
 #: phase 12: rounds of (off, on, guarded) wall readings of allreduce_q
 PHASE12_ROUNDS = 5
+#: phase 13: the reference benchmark's stream configuration
+#: (bench.py:2715-2719, stream_rates): the blobs' first 200 000 rows, 8
+#: chunks of 25 000 rows an epoch, 2 epochs; a chunk is 3.2 MB and the
+#: slab 25.6 MB
+STREAM_ROWS, STREAM_CHUNKS, STREAM_EPOCHS = 200_000, 8, 2
+STREAM_MB = STREAM_ROWS // STREAM_CHUNKS
+#: phase 13: the mini-batch fits against their float64 numpy replays, as
+#: a share of the largest center or coefficient (float32 chunk updates:
+#: 1e-6-ish; a label flipped at a float32 near-tie moves a center by
+#: about |x - c| / count, some 1e-4 of the blobs' scale)
+STREAM_TOL = 1e-3
+#: phase 13: alternating rounds of (off, on, in memory) wall readings of
+#: each mini-batch fit
+STREAM_ROUNDS = 5
+#: phase 13: a mini-batch KMeans label may differ from float64's only
+#: where the row's two nearest centers' squared distances lie within this
+#: share of each other (float32 rounding of |c|^2 - 2 x.c)
+KM_TIE = 1e-4
+#: phase 13: the checkpointed int8_block fits at 4 positions: KMeans 30
+#: steps a snapshot every 10, Lasso gd 1000 steps every 250, each killed
+#: by a seeded preemption after its second snapshot and resumed
+CKPT_KM_EVERY, CKPT_LASSO_EVERY, CKPT_KILL_AT = 10, 250, 2
 #: phase 12's armed plans, each firing on the first allreduce: NaN and
 #: +Inf written to element 0, the 1e36 saturation, the bit-30 flip
 PHASE12_FAULTS = (("nonfinite", {}), ("nonfinite", {"value": float("inf")}), ("saturate", {}),
@@ -2610,6 +2665,380 @@ def phase_base_layer(torch, htt, cq, dev, data, centers, counted):
     return launches, metrics
 
 
+# --------------------------------------------------------------------- #
+# IO, the out-of-core stream, checkpoints and resume (phase 13)           #
+# --------------------------------------------------------------------- #
+def once(torch, fn):
+    """``(fn(), wall ms, device ms)`` of ONE call of ``fn`` under
+    ``torch.profiler`` (calls with side effects, a snapshot or a kill, run
+    once; the profiler's overhead is in the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and not evt.key.startswith("Activity Buffer"):
+            us = getattr(evt, "self_device_time_total", None)
+            dev += float(us if us is not None else getattr(evt, "self_cuda_time_total", 0.0))
+    return out, wall, dev / 1e3
+
+
+def step13(torch, metrics: dict, key: str, fn):
+    """Run ``fn`` once (:func:`once`), record and print its wall and
+    device time under ``key``, return ``fn()``."""
+    out, wall, dev = once(torch, fn)
+    metrics[f"{key}_ms"], metrics[f"{key}_device_ms"] = wall, dev
+    print(f"  {key}: {wall:.3f} ms wall, {dev:.3f} ms of device time")
+    return out
+
+
+def hold_minibatch_kmeans(torch, dev, x: np.ndarray, init: np.ndarray, mb: int, epochs: int):
+    """Replay the mini-batch KMeans fit's chunk updates on the card and
+    hold each to float64 numpy: every label the float64 nearest center's
+    unless the row's two nearest centers lie within ``KM_TIE`` of its
+    squared distance, and the new centers and counts within ``STREAM_TOL``
+    of the float64 update made with the card's labels.  (Starting from
+    rows of one blob, several centers split it: over the fit, float32 near
+    ties steer the trajectory away from a float64 one, so each step is
+    held, not the end.)  Returns the final centers, ``(worst label margin
+    of a disagreeing row, worst center error)``."""
+    from heat_tpu_torch.cluster.kmeans import _assign, _kmeans_mb_step
+
+    k, n = init.shape[0], x.shape[0]
+    c = torch.from_numpy(init).to(dev)
+    counts = torch.zeros((k, 1), device=dev)
+    worst_tie, worst_err = 0.0, 0.0
+    for s in range(epochs * -(-n // mb)):
+        lo = (s * mb) % (-(-n // mb) * mb)
+        xb = x[lo:lo + mb]
+        nv = xb.shape[0]
+        chunk = torch.zeros((mb, x.shape[1]), device=dev)
+        chunk[:nv] = torch.from_numpy(xb).to(dev)
+        lab = _assign(chunk[:nv], c).cpu().numpy()
+        c64, n64 = c.double().cpu().numpy(), counts.double().cpu().numpy()
+        x64 = xb.astype(np.float64)
+        d = ((x64[:, None, :] - c64[None]) ** 2).sum(-1)
+        off = np.nonzero(lab != d.argmin(1))[0]
+        if off.size:
+            tie = float(((d[off, lab[off]] - d[off].min(1)) / d[off].min(1).clip(1e-30)).max())
+            worst_tie = max(worst_tie, tie)
+            check(tie <= KM_TIE, f"mini-batch step {s}: {off.size} labels off the float64 nearest by {tie:.3g}")
+        sel = np.eye(k)[lab]
+        bs, bc = sel.T @ x64, sel.sum(0)[:, None]
+        n2 = n64 + bc
+        want = np.where(bc > 0, c64 + (bs - bc * c64) / np.maximum(n2, 1.0), c64)
+        _, c, counts = _kmeans_mb_step(chunk, nv, 0, c, counts, mb=mb, k=k)
+        err = float(np.abs(c.double().cpu().numpy() - want).max()) / float(np.abs(want).max())
+        worst_err = max(worst_err, err)
+        check(err <= STREAM_TOL and np.array_equal(counts.cpu().numpy(), n2),
+              f"mini-batch step {s}: centers {err:.3g} of their largest from the float64 update")
+    return c, (worst_tie, worst_err)
+
+
+def numpy_minibatch_ista(x: np.ndarray, y: np.ndarray, lam: float, mb: int, epochs: int) -> np.ndarray:
+    """The mini-batch ISTA steps in float64, the step from the first
+    chunk's largest eigenvalue of ``A^T A / n``."""
+    n, f = x.shape
+    a0 = np.concatenate([np.ones((min(mb, n), 1)), x[:mb]], axis=1)
+    step = 1.0 / np.linalg.eigvalsh(a0.T @ a0 / a0.shape[0])[-1]
+    th = np.zeros(f + 1)
+    for _ in range(epochs):
+        for lo in range(0, n, mb):
+            a = np.concatenate([np.ones((min(mb, n - lo), 1)), x[lo:lo + mb]], axis=1)
+            t2 = th - step * (a.T @ (a @ th - y[lo:lo + mb]) / a.shape[0])
+            th = np.concatenate([t2[:1], np.sign(t2[1:]) * np.maximum(np.abs(t2[1:]) - step * lam, 0.0)])
+    return th
+
+
+def phase_io_stream(torch, htt, cq, dev, data, centers, counted):
+    """Phase 13 (see the module docstring).  Returns ``(launches of the
+    checkpointed int8_block fits, metrics)``; leaves no plan armed and the
+    prefetch policy as it found it."""
+    import os
+    import shutil
+    import tempfile
+
+    from heat_tpu_torch import native
+    from heat_tpu_torch.comm._costs import stream_model
+    from heat_tpu_torch.io import stream
+    from heat_tpu_torch.resilience import elastic, faults
+    from heat_tpu_torch.resilience.faults import DeviceLossError, Preempted
+    from heat_tpu_torch import telemetry as tel
+
+    check(not faults.any_active() and not tel.is_enabled(), "phase 13 starts with no plan armed")
+    metrics = {}
+    rows, mb, h, epochs = STREAM_ROWS, STREAM_MB, STREAM_CHUNKS, STREAM_EPOCHS
+    x = np.ascontiguousarray(data[:rows])
+    y = lasso_target(x).astype(np.float32)
+    comm1 = htt.TorchCommunication([dev])
+    X1 = htt.array(x, split=0, comm=comm1)
+    Y1 = htt.array(y, split=0, comm=comm1)
+    tmp = tempfile.mkdtemp(prefix="phase13-")
+    has_h5 = htt.io.supports_hdf5()
+    launches = {f"blockquant_{fn.__name__.removesuffix('_blocks')}": 0 for fn in counted}
+    try:
+        # (1) files written and read back on the card, bitwise
+        nc, csv = os.path.join(tmp, "blobs.nc"), os.path.join(tmp, "blobs.csv")
+        step13(torch, metrics, "save_netcdf", lambda: (htt.save_netcdf(X1, nc, "features"),
+                                                        htt.save_netcdf(Y1, nc, "target", mode="a")))
+        got = step13(torch, metrics, "load_netcdf", lambda: htt.load_netcdf(nc, "features", split=0, comm=comm1))
+        exact(got.numpy(), x, "load_netcdf of save_netcdf")
+        check(got.larray.device.type == "cuda", "load_netcdf did not land on the card")
+        step13(torch, metrics, "save_csv", lambda: htt.save_csv(X1, csv))
+        # (2) the native scanner, timed
+        check(native.fastcsv_available(), "the native CSV scanner did not build on this machine")
+        got = step13(torch, metrics, "load_csv", lambda: htt.load_csv(csv, split=0, comm=comm1))
+        exact(got.numpy(), x, "load_csv of save_csv")
+        if has_h5:
+            h5 = os.path.join(tmp, "blobs.h5")
+            step13(torch, metrics, "save_hdf5", lambda: (htt.save_hdf5(X1, h5, "features"),
+                                                          htt.save_hdf5(Y1, h5, "target", mode="a")))
+            got = step13(torch, metrics, "load_hdf5", lambda: htt.load_hdf5(h5, "features", split=0, comm=comm1))
+            exact(got.numpy(), x, "load_hdf5 of save_hdf5")
+            srcs = lambda: (stream.HDF5Source(h5, "features"), stream.HDF5Source(h5, "target"))  # noqa: E731
+        else:
+            print("phase 13: hdf5 absent, snapshots not run")
+            srcs = lambda: (stream.NetCDFSource(nc, "features"), stream.NetCDFSource(nc, "target"))  # noqa: E731
+        del got
+        metrics["stream_source"] = "hdf5" if has_h5 else "netcdf3"
+
+        # the host's rates behind stream_model's defaults: one read of
+        # the 25.6 MB slab from NetCDF-3, one pinned non_blocking copy of
+        # it to the card (medians of 5)
+        slab_bytes = rows * F * 4
+        reads, copies = [], []
+        nsrc = stream.NetCDFSource(nc, "features")
+        pinned = torch.empty((rows, F), dtype=torch.float32, pin_memory=True)
+        dst = torch.empty((rows, F), dtype=torch.float32, device=dev)
+        for _ in range(5):
+            t0 = time.perf_counter()
+            block = nsrc.read(0, rows)
+            reads.append(time.perf_counter() - t0)
+            pinned.copy_(torch.from_numpy(block))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(pinned, non_blocking=True)
+            end.record()
+            end.synchronize()
+            copies.append(start.elapsed_time(end) / 1e3)
+        exact(dst.cpu().numpy(), x, "the pinned copy")
+        read_gbps = slab_bytes / float(np.median(reads)) / 1e9
+        h2d_gbps = slab_bytes / float(np.median(copies)) / 1e9
+        metrics["host_read_gbps"], metrics["h2d_gbps"] = read_gbps, h2d_gbps
+        print(f"host rates ({card_line()}): NetCDF-3 read of {slab_bytes} B {read_gbps:.3f} GB/s, "
+              f"pinned copy to the card {h2d_gbps:.3f} GB/s (medians of 5)")
+        del pinned, dst
+
+        # (3) the mini-batch fits: prefetch off and on from the file, and
+        # the in-memory twin, bitwise
+        Lasso, KMeans = htt.regression.Lasso, htt.cluster.KMeans
+
+        def km(source, mode):
+            with stream.prefetch(mode):
+                return KMeans(n_clusters=K, mini_batch=mb, max_iter=epochs, random_state=0).fit(source, comm=comm1)
+
+        def ls(sx, sy, mode):
+            with stream.prefetch(mode):
+                return Lasso(lam=LASSO_LAM, solver="gd", mini_batch=mb, max_iter=epochs).fit(sx, sy, comm=comm1)
+
+        fits = {}
+        for mode in ("off", "on"):
+            stream.reset_slab_peak()
+            fits[f"km_{mode}"] = step13(torch, metrics, f"stream_kmeans_{mode}", lambda: km(srcs()[0], mode))
+            metrics[f"slab_peak_{mode}"] = stream.slab_peak()
+            stream.reset_slab_peak()
+            fits[f"ls_{mode}"] = step13(torch, metrics, f"stream_lasso_{mode}", lambda: ls(*srcs(), mode))
+            metrics[f"slab_peak_lasso_{mode}"] = stream.slab_peak()
+        fits["km_mem"] = step13(torch, metrics, "stream_kmeans_memory", lambda: km(X1, "off"))
+        fits["ls_mem"] = step13(torch, metrics, "stream_lasso_memory", lambda: ls(X1, Y1, "off"))
+        c_off = fits["km_off"].cluster_centers_.larray
+        t_off = fits["ls_off"].theta.larray
+        check(bitwise_equal(fits["km_on"].cluster_centers_.larray, c_off), "mini-batch KMeans: prefetch on != off")
+        check(bitwise_equal(fits["km_mem"].cluster_centers_.larray, c_off), "mini-batch KMeans: in-memory != streamed")
+        check(bitwise_equal(fits["ls_on"].theta.larray, t_off), "mini-batch Lasso: prefetch on != off")
+        check(bitwise_equal(fits["ls_mem"].theta.larray, t_off), "mini-batch Lasso: in-memory != streamed")
+        check(fits["km_off"].n_iter_ == epochs * h and fits["ls_off"].n_iter == epochs * h, "mini-batch step counts")
+        check((metrics["slab_peak_off"], metrics["slab_peak_on"]) == (1, 2)
+              and (metrics["slab_peak_lasso_off"], metrics["slab_peak_lasso_on"]) == (1, 2),
+              "slab peaks off / on != 1 / 2")
+        init = x[np.sort(np.random.default_rng(0).choice(mb, size=K, replace=False))]
+        replay, (c_tie, c_err) = hold_minibatch_kmeans(torch, dev, x, init, mb, epochs)
+        check(bitwise_equal(replay, c_off), "mini-batch KMeans != its chunk updates replayed one by one")
+        th64 = numpy_minibatch_ista(x.astype(np.float64), y.astype(np.float64), LASSO_LAM, mb, epochs)
+        t_err = float(np.abs(t_off.cpu().numpy().reshape(-1) - th64).max())
+        check(t_err <= STREAM_TOL * float(np.abs(th64).max()),
+              f"mini-batch Lasso {t_err:.3g} from its float64 replay > {STREAM_TOL} x {np.abs(th64).max():.3g}")
+        # wall time: medians of alternating rounds (a single call moves 2x
+        # with the host), the profiled calls above giving device time
+        runs = {"kmeans_off": lambda: km(srcs()[0], "off"), "kmeans_on": lambda: km(srcs()[0], "on"),
+                "kmeans_memory": lambda: km(X1, "off"), "lasso_off": lambda: ls(*srcs(), "off"),
+                "lasso_on": lambda: ls(*srcs(), "on"), "lasso_memory": lambda: ls(X1, Y1, "off")}
+        walls = {key: [] for key in runs}
+        for _ in range(STREAM_ROUNDS):
+            for key, fn in runs.items():
+                walls[key].append(wall_ms(fn, reps=1))
+        for key, times in walls.items():
+            metrics[f"stream_{key}_wall_ms"] = float(np.median(times))
+            metrics[f"stream_{key}_wall_range_ms"] = [min(times), max(times)]
+        for key in ("kmeans", "lasso"):
+            metrics[f"stream_{key}_rows_per_s"] = epochs * rows / metrics[f"stream_{key}_on_wall_ms"] * 1e3
+            metrics[f"stream_{key}_overlap"] = (metrics[f"stream_{key}_off_wall_ms"]
+                                                / metrics[f"stream_{key}_on_wall_ms"])
+            print(f"  {key}: wall medians of {STREAM_ROUNDS} rounds off / on / in memory "
+                  + " / ".join(f"{metrics[f'stream_{key}_{m}_wall_ms']:.3f}" for m in ("off", "on", "memory"))
+                  + " ms")
+
+        # stream_model from this run: the read and copy spans of one
+        # epoch under telemetry, the chunk update timed alone; an epoch
+        # held whole first, so the spanned one allocates nothing new
+        from heat_tpu_torch.cluster.kmeans import _kmeans_mb_step
+
+        with stream.prefetch("off"):
+            chunks = list(stream.stream_chunks(srcs()[0], mb, 0, h, comm=comm1))
+            del chunks
+            tel.enable()
+            tel.reset()
+            try:
+                chunks = [(c[0], nv) for c, nv in stream.stream_chunks(srcs()[0], mb, 0, h, comm=comm1)]
+                torch.cuda.synchronize()
+                snap = tel.snapshot()
+            finally:
+                tel.disable()
+                tel.reset()
+        read_s = snap["spans"]["io:read"]["total_s"]
+        h2d_s = snap["spans"]["io:h2d"]["total_s"]
+        carry = (0, torch.from_numpy(init).to(dev), torch.zeros((K, 1), device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunk, nv in chunks:
+            carry = _kmeans_mb_step(chunk, nv, *carry, mb=mb, k=K)
+        torch.cuda.synchronize()
+        compute_ms = (time.perf_counter() - t0) * 1e3 / h
+        chunk_bytes = mb * F * 4
+        model = stream_model(chunk_bytes, h, compute_ms, read_gbps=chunk_bytes * h / read_s / 1e9,
+                             h2d_gbps=chunk_bytes * h / h2d_s / 1e9, prefetch=True)
+        metrics["stream_model_speedup"] = model["speedup"]
+        metrics["stream_model_bound"] = model["bound"]
+        metrics["stream_compute_ms_per_chunk"] = compute_ms
+        del chunks
+        print(f"mini-batch fits, {rows} x {F} from {metrics['stream_source']}, {h} chunks of {mb} rows, {epochs} "
+              f"epochs: prefetch on, off and in memory bitwise; slab peaks 1 / 2; KMeans's chunk updates "
+              f"within {c_err:.3g} of float64 (labels off only at near ties, worst {c_tie:.3g}), Lasso "
+              f"{t_err:.3g} from its float64 replay; KMeans {metrics['stream_kmeans_rows_per_s']:.0f} rows/s, "
+              f"Lasso {metrics['stream_lasso_rows_per_s']:.0f} rows/s (prefetch on); overlap measured "
+              f"{metrics['stream_kmeans_overlap']:.3f} (KMeans), {metrics['stream_lasso_overlap']:.3f} (Lasso), "
+              f"stream_model predicts {model['speedup']:.3f} ({model['bound']}-bound: read "
+              f"{model['read_ms_per_chunk']:.3f} + copy {model['h2d_ms_per_chunk']:.3f} ms against compute "
+              f"{compute_ms:.3f} ms a chunk)")
+
+        # (4) snapshots, resume and elastic recovery (they need HDF5)
+        if has_h5:
+            comm4 = htt.TorchCommunication([dev] * POSITIONS)
+            X4 = htt.array(data, split=0, comm=comm4)
+            init4 = htt.array(centers, comm=comm4)
+            yb = lasso_target(data).astype(np.float32)
+            Y4 = htt.array(yb, split=0, comm=comm4)
+            snap_km, snap_ls = os.path.join(tmp, "km.h5"), os.path.join(tmp, "ls.h5")
+
+            def kmq(**kw):
+                return KMeans(n_clusters=K, init=init4, max_iter=ITERS, tol=-1.0, **kw)
+
+            def lsq(**kw):
+                return Lasso(lam=LASSO_LAM, max_iter=LASSO_STEPS, tol=-1.0, solver="gd", **kw)
+
+            def counts():
+                torch.cuda.synchronize()
+                return {f"blockquant_{fn.__name__.removesuffix('_blocks')}": fn.launches for fn in counted}
+
+            def killed(make, every, path, *args):
+                with faults.inject("preempt", site="iteration", nth=CKPT_KILL_AT):
+                    try:
+                        make(checkpoint_every=every, checkpoint_path=path).fit(*args)
+                    except Preempted:
+                        return True
+                return False
+
+            with cq.collective_precision("int8_block"):
+                for fn in counted:
+                    fn.launches = 0
+                clean_km = kmq().fit(X4)
+                plain_km = counts()
+                for fn in counted:
+                    fn.launches = 0
+                check(step13(torch, metrics, "kmeans_int8_killed", lambda: killed(kmq, CKPT_KM_EVERY, snap_km, X4)),
+                      "the seeded preemption did not stop the KMeans fit")
+                res_km = step13(torch, metrics, "kmeans_int8_resumed", lambda: kmq(
+                    checkpoint_every=CKPT_KM_EVERY, checkpoint_path=snap_km).fit(X4, resume=True))
+                seg_km = counts()
+                for fn in counted:
+                    fn.launches = 0
+                clean_ls = lsq().fit(X4, Y4)
+                plain_ls = counts()
+                for fn in counted:
+                    fn.launches = 0
+                check(step13(torch, metrics, "lasso_int8_killed",
+                             lambda: killed(lsq, CKPT_LASSO_EVERY, snap_ls, X4, Y4)),
+                      "the seeded preemption did not stop the Lasso fit")
+                res_ls = step13(torch, metrics, "lasso_int8_resumed", lambda: lsq(
+                    checkpoint_every=CKPT_LASSO_EVERY, checkpoint_path=snap_ls).fit(X4, Y4, resume=True))
+                seg_ls = counts()
+            check(bitwise_equal(res_km.cluster_centers_.larray, clean_km.cluster_centers_.larray)
+                  and res_km.n_iter_ == ITERS, "resumed int8 KMeans != the uninterrupted fit, bitwise")
+            check(bitwise_equal(res_ls.theta.larray, clean_ls.theta.larray) and res_ls.n_iter == LASSO_STEPS,
+                  "resumed int8 Lasso gd != the uninterrupted fit, bitwise")
+            check(seg_km == plain_km, f"killed + resumed KMeans launches {seg_km} != uninterrupted {plain_km}")
+            steps = LASSO_STEPS
+            expected = {"blockquant_quantize": 2 * steps, "blockquant_dequantize": steps,
+                        "blockquant_dequantize_fma": steps,
+                        "blockquant_dequantize_add_quantize": (POSITIONS - 1) * steps}
+            check(seg_ls == plain_ls == expected, f"killed + resumed Lasso launches {seg_ls}, uninterrupted "
+                  f"{plain_ls}, phase 7's {expected}")
+            for name in launches:
+                launches[name] = seg_km[name] + seg_ls[name]
+
+            # elastic: a mini-batch KMeans at 4 positions loses a position
+            # after its first epoch's snapshot, recovers at 2
+            comm2 = htt.TorchCommunication([dev] * 2)
+            X2 = htt.array(x, split=0, comm=comm2)
+            snap_mb = os.path.join(tmp, "mb.h5")
+            clean2 = KMeans(n_clusters=K, mini_batch=mb, max_iter=epochs, random_state=0).fit(X2)
+            mb_est = KMeans(n_clusters=K, mini_batch=mb, max_iter=epochs, random_state=0,
+                            checkpoint_every=h, checkpoint_path=snap_mb)
+            try:
+                with faults.inject("device_loss", site="iteration", nth=1):
+                    mb_est.fit(htt.array(x, split=0, comm=comm4))
+                check(False, "the seeded device loss did not stop the mini-batch fit")
+            except DeviceLossError:
+                pass
+            rec = step13(torch, metrics, "elastic_recover_4_to_2",
+                         lambda: elastic.recover(mb_est, snap_mb, X2, comm=comm2))
+            check(bitwise_equal(rec.cluster_centers_.larray, clean2.cluster_centers_.larray),
+                  "elastic recovery 4 -> 2 != the uninterrupted 2-position fit, bitwise")
+
+            # one estimator saved and loaded
+            est_path = os.path.join(tmp, "kmeans.h5")
+            step13(torch, metrics, "save_estimator", lambda: htt.save_estimator(res_km, est_path))
+            loaded = step13(torch, metrics, "load_estimator", lambda: htt.load_estimator(est_path))
+            check(bitwise_equal(loaded.cluster_centers_.larray, res_km.cluster_centers_.larray)
+                  and bool(torch.equal(loaded.predict(X1).larray, res_km.predict(X1).larray)),
+                  "the loaded estimator's centers or predictions differ")
+            print(f"snapshots: int8 KMeans ({ITERS} steps, every {CKPT_KM_EVERY}) and int8 Lasso gd ({LASSO_STEPS} "
+                  f"steps, every {CKPT_LASSO_EVERY}) at {POSITIONS} positions killed after snapshot {CKPT_KILL_AT} "
+                  f"and resumed: bitwise the uninterrupted fits; launches KMeans {seg_km}, Lasso {seg_ls} (phase "
+                  f"7's); elastic recover 4 -> 2 of the mini-batch KMeans bitwise the 2-position fit; an "
+                  f"estimator saved and loaded")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not faults.any_active(), "phase 13 left a plan armed")
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -2811,6 +3240,15 @@ def run(dev, out_path=None) -> int:
             row["launches_by_phase"]["12"] = base_launches[row["name"]]
             row["launches"] += base_launches[row["name"]]
     print(f"phase 12: {base_metrics['phase12_s']:.1f} s; launches {base_launches}")
+    # ---------------------------------------------------------------- 13
+    t13 = time.perf_counter()
+    io_launches, io_metrics = phase_io_stream(torch, htt, cq, dev, data, centers, counted)
+    io_metrics["phase13_s"] = time.perf_counter() - t13
+    for row in kernel_rows:
+        if row["name"] in io_launches:
+            row["launches_by_phase"]["13"] = io_launches[row["name"]]
+            row["launches"] += io_launches[row["name"]]
+    print(f"phase 13: {io_metrics['phase13_s']:.1f} s; launches {io_launches}")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -2829,6 +3267,7 @@ def run(dev, out_path=None) -> int:
         **sort_metrics,
         **grid_metrics,
         **base_metrics,
+        **io_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

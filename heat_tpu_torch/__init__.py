@@ -11,8 +11,11 @@ kernels for Hopper (``csrc/``); and attention (``parallel``): flash,
 ring and Ulysses attention on the hand-written flash kernels; and the base
 layer beneath them (``telemetry``: spans, counters, the byte ledger,
 histograms, SLOs, the flight recorder, Perfetto export and ``/metrics``;
-``resilience``: incidents, retries, seeded fault injection and the
-collective guards).  Arrays live on the GPU by default; the
+``resilience``: incidents, retries, seeded fault injection, the
+collective guards, loop snapshots with strict and elastic resume); file
+IO (``io``: HDF5, NetCDF-3, CSV on a native scanner, and the out-of-core
+stream the mini-batch fits consume), estimator checkpoints
+(``save_estimator``/``load_estimator``) and the bundled ``datasets``.  Arrays live on the GPU by default; the
 CPU is used only when asked for (``use_device("cpu")``, ``device="cpu"``
 or a communicator of CPU positions).
 
@@ -41,3 +44,10 @@ from . import interop  # noqa: E402
 from . import utils  # noqa: E402
 from . import telemetry  # noqa: E402
 from . import resilience  # noqa: E402
+from . import obs  # noqa: E402
+from . import datasets  # noqa: E402
+
+# htt.io is the io PACKAGE (the flat loaders re-exported, and the stream):
+# `from .core import *` bound the name to the flat core.io module, so the
+# absolute import forces the package's load, which rebinds `io` here
+import heat_tpu_torch.io  # noqa: E402,F401

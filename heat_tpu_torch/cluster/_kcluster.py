@@ -56,6 +56,8 @@ class _KCluster(ClusteringMixin, BaseEstimator):
     ----------
     metric : callable(DNDarray, DNDarray) -> DNDarray
     n_clusters, init, max_iter, tol, random_state : as in the reference.
+    checkpoint_every, checkpoint_path : loop snapshots of the resumable
+        fits (see :class:`~heat_tpu_torch.cluster.KMeans`).
     """
 
     _init_plus_plus_alias: Optional[str] = None
@@ -68,6 +70,8 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         max_iter: int,
         tol: float,
         random_state: Optional[int],
+        checkpoint_every: int = 0,
+        checkpoint_path: Optional[str] = None,
     ):
         if isinstance(init, str) and init == self._init_plus_plus_alias:
             init = "probability_based"
@@ -76,11 +80,27 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         self.max_iter = max_iter
         self.tol = tol
         self.random_state = random_state
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_path = checkpoint_path
         self._metric = metric
         self._cluster_centers = None
         self._labels = None
         self._inertia = None
         self._n_iter = None
+
+    def _checkpointer(self, algo: str, meta: dict, comm=None, splits=None):
+        """The loop-snapshot driver of a resumable fit (KMeans; the other
+        k-clusterers run unsegmented)."""
+        from ..resilience.resume import LoopCheckpointer
+
+        return LoopCheckpointer(
+            self.checkpoint_path, self.checkpoint_every, algo, meta,
+            comm=comm, splits=splits,
+        )
+
+    def _checkpoint_attrs(self):
+        # fitted state lives in private storage behind the *_ properties
+        return ["_cluster_centers", "_labels", "_inertia", "_n_iter"]
 
     @classmethod
     def from_fitted(cls, state: dict, device=None, comm=None):

@@ -80,6 +80,11 @@ class Spectral(ClusteringMixin, BaseEstimator):
         self._kmeans = None
         self._embedding_dim = None
 
+    def _checkpoint_attrs(self):
+        # the fitted KMeans nests recursively; _laplacian is rebuilt by
+        # __init__ from the constructor params
+        return ["_labels", "_cluster_centers", "_kmeans", "_embedding_dim"]
+
     @property
     def labels_(self) -> DNDarray:
         return self._labels

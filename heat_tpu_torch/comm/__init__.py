@@ -3,3 +3,4 @@ telemetry (``overlap``)."""
 
 from . import compressed, overlap
 from .compressed import *  # noqa: F401,F403
+from ._costs import stream_model  # noqa: F401

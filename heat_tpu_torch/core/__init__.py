@@ -39,3 +39,7 @@ from . import tiling
 from .tiling import *  # noqa: F401,F403
 from . import linalg
 from .linalg import *  # noqa: F401,F403
+from . import io
+from .io import *  # noqa: F401,F403
+from . import checkpoint
+from .checkpoint import *  # noqa: F401,F403

@@ -111,6 +111,32 @@ class BaseEstimator:
         params = ", ".join(f"{k}={v!r}" for k, v in sorted(self.get_params(deep=False).items()))
         return f"{self.__class__.__name__}({params})"[:N_CHAR_MAX]
 
+    def _checkpoint_attrs(self):
+        """Instance attributes :func:`heat_tpu_torch.save_estimator` keeps
+        besides the constructor parameters: by default every public ``*_``
+        attribute (the sklearn fitted convention); estimators whose fitted
+        state lives in private storage override it."""
+        return [n for n in vars(self) if n.endswith("_") and not n.startswith("_")]
+
+    def save(self, path: str) -> None:
+        """Checkpoint this estimator (parameters and fitted state) to one
+        HDF5 file: :func:`heat_tpu_torch.save_estimator`."""
+        from .checkpoint import save_estimator
+
+        save_estimator(self, path)
+
+    @classmethod
+    def load(cls, path: str) -> "BaseEstimator":
+        """Restore an estimator saved with :meth:`save` (by either
+        package); raises TypeError if the file holds another class than
+        ``cls`` (``BaseEstimator.load`` accepts any)."""
+        from .checkpoint import load_estimator
+
+        est = load_estimator(path)
+        if cls is not BaseEstimator and not isinstance(est, cls):
+            raise TypeError(f"{path} holds a {type(est).__name__}, not a {cls.__name__}")
+        return est
+
 
 class ClassificationMixin:
     """Mixin for classification estimators."""

@@ -3,13 +3,15 @@
 Port of ``heat_tpu/core/linalg/solver.py``.  The iterations run on the
 operands' device.  ``cg``'s host reads the residual norm once a step for
 the convergence test; ``lanczos`` decides its breakdown restarts on the
-device and never syncs inside its loop.
+device and never syncs inside its loop, and runs in segments with its
+carry snapshotted between them under ``checkpoint_every``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import random, types
@@ -75,58 +77,81 @@ def lanczos(
     normalized; every call draws ``rand(n, m)``, whose column ``i`` is step
     ``i``'s restart vector should ``w`` break down (norm under 1e-10).
     The restart is chosen on the device (``torch.where``), so the m - 1
-    steps run without a host sync.  Checkpointed and resumed runs are not
-    ported (ROADMAP queue A, item 16)."""
+    steps run without a host sync.
+
+    With ``checkpoint_every=N`` the steps run in N-step segments,
+    snapshotting the carry ``(V, T, w, v_prev)`` and the restart matrix
+    between segments to ``checkpoint_path``; ``resume=True`` restarts from
+    the snapshot and finishes bitwise equal to an uninterrupted run.
+    ``resume="elastic"`` also takes a snapshot of another number of
+    positions (the carry is replicated: it passes through)."""
     sanitize_in(A)
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise RuntimeError("A needs to be a square matrix")
     if not isinstance(m, int) or m <= 0:
         raise RuntimeError("m must be a positive integer")
-    if checkpoint_every or checkpoint_path is not None or resume:
-        raise NotImplementedError(
-            "checkpointed and resumed lanczos runs need the resilience layer "
-            "(ROADMAP queue A, item 16)"
-        )
+    from ...resilience import elastic as _elastic
+    from ...resilience.resume import LoopCheckpointer
+
     n = A.shape[0]
     arr = A.larray.to(torch.float32) if types.heat_type_is_exact(A.dtype) else A.larray
     dt = arr.dtype
-    if v0 is None:
-        v = random.rand(n, dtype=types.float32, device=A.device, comm=A.comm).larray
-        v = v / torch.linalg.vector_norm(v)
-    else:
-        sanitize_in(v0)
-        v = v0.larray / torch.linalg.vector_norm(v0.larray)
-    v = v.to(dt)
-    R = random.rand(n, m, dtype=types.float32, device=A.device, comm=A.comm).larray
+    ckpt = LoopCheckpointer(
+        checkpoint_path, checkpoint_every, "lanczos", {"n": int(n), "m": int(m)}, comm=A.comm,
+        splits={"i": None, "V": None, "T": None, "w": None, "v_prev": None, "R": None},
+    )
 
     with _matmul_precision():
-        V = torch.zeros((n, m), dtype=dt, device=arr.device)
-        T = torch.zeros((m, m), dtype=dt, device=arr.device)
-        V[:, 0] = v
-        w = arr @ v
-        alpha = torch.dot(w, v)
-        T[0, 0] = alpha
-        w, v_prev = w - alpha * v, v
+        if resume:
+            state, _ = ckpt.load(elastic=resume == "elastic")
+            R = torch.as_tensor(state["R"], dtype=torch.float32).to(arr.device)
+            V, T, w, v_prev = (torch.as_tensor(state[k]).to(device=arr.device, dtype=dt)
+                               for k in ("V", "T", "w", "v_prev"))
+            it = int(state["i"])
+        else:
+            if v0 is None:
+                v = random.rand(n, dtype=types.float32, device=A.device, comm=A.comm).larray
+                v = v / torch.linalg.vector_norm(v)
+            else:
+                sanitize_in(v0)
+                v = v0.larray / torch.linalg.vector_norm(v0.larray)
+            v = v.to(dt)
+            R = random.rand(n, m, dtype=types.float32, device=A.device, comm=A.comm).larray
+            V = torch.zeros((n, m), dtype=dt, device=arr.device)
+            T = torch.zeros((m, m), dtype=dt, device=arr.device)
+            V[:, 0] = v
+            w = arr @ v
+            alpha = torch.dot(w, v)
+            T[0, 0] = alpha
+            w, v_prev = w - alpha * v, v
+            it = 1
         one = torch.ones((), dtype=dt, device=arr.device)
-        for i in range(1, m):
-            Vi = V[:, :i]
-            beta = torch.linalg.vector_norm(w)
-            breakdown = beta < 1e-10
-            vr = R[:, i].to(dt)
-            vr = vr - Vi @ (Vi.T @ vr)
-            vr_nrm = torch.linalg.vector_norm(vr)
-            vr = torch.where(vr_nrm > 0, vr / vr_nrm, vr)
-            w = torch.where(breakdown, vr, w / torch.where(breakdown, one, beta))
-            w = w - Vi @ (Vi.T @ w)
-            nrm = torch.linalg.vector_norm(w)
-            w = torch.where(nrm > 0, w / nrm, w)
-            V[:, i] = w
-            wnew = arr @ w
-            alpha = torch.dot(wnew, w)
-            T[i, i] = alpha
-            T[i - 1, i] = beta
-            T[i, i - 1] = beta
-            w, v_prev = wnew - alpha * w - beta * v_prev, w
+        while it < m:
+            stop = ckpt.stop(it, m)
+            with _elastic.dispatch_guard("lanczos.seg", A.comm):
+                for i in range(it, stop):
+                    Vi = V[:, :i]
+                    beta = torch.linalg.vector_norm(w)
+                    breakdown = beta < 1e-10
+                    vr = R[:, i].to(dt)
+                    vr = vr - Vi @ (Vi.T @ vr)
+                    vr_nrm = torch.linalg.vector_norm(vr)
+                    vr = torch.where(vr_nrm > 0, vr / vr_nrm, vr)
+                    w = torch.where(breakdown, vr, w / torch.where(breakdown, one, beta))
+                    w = w - Vi @ (Vi.T @ w)
+                    nrm = torch.linalg.vector_norm(w)
+                    w = torch.where(nrm > 0, w / nrm, w)
+                    V[:, i] = w
+                    wnew = arr @ w
+                    alpha = torch.dot(wnew, w)
+                    T[i, i] = alpha
+                    T[i - 1, i] = beta
+                    T[i, i - 1] = beta
+                    w, v_prev = wnew - alpha * w - beta * v_prev, w
+            it = stop
+            if it >= m:
+                break
+            ckpt.tick(it, {"i": np.int32(it), "V": V, "T": T, "w": w, "v_prev": v_prev, "R": R})
 
     split = 0 if A.split is not None else None
     heat_dt = types.canonical_heat_type(dt)

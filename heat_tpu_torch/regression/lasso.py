@@ -19,11 +19,15 @@ delta_j``) and computes ``rho_j = mean(x_j * (resid + x_j theta_j))`` as
 ``(x_j . resid + theta_j |x_j|^2) / n``.
 
 With telemetry on, the quantized ISTA loop credits the byte ledger with
-all of its rings in one entry, as the reference's does.
+each segment's rings in one entry, as the reference's does.
 
-Not ported: streaming ``mini_batch`` fits (ROADMAP queue A, item 12) and
-``checkpoint_every``/``resume`` (item 16), which raise
-``NotImplementedError``.
+``checkpoint_every=N`` runs each loop in N-sweep (step) segments,
+snapshotting the carry (the stacked error-feedback residual included)
+between them; ``fit(..., resume=True)`` continues bitwise where the
+snapshot left off, ``resume="elastic"`` also onto another number of
+positions.  ``mini_batch=`` (gd only) or stream-source inputs fit out of
+core: ISTA steps over the chunks of
+:func:`heat_tpu_torch.io.stream.stream_chunks`.
 """
 
 from __future__ import annotations
@@ -58,10 +62,17 @@ class Lasso(RegressionMixin, BaseEstimator):
     solver : str — ``"cd"`` (default): cyclic coordinate descent; ``"gd"``:
         ISTA with a power-iteration step size, whose gradient combine rides
         the compressed ring under a compressing collective policy.
-    checkpoint_every, checkpoint_path : loop checkpointing (not ported yet:
-        ``checkpoint_every > 0`` raises at ``fit``).
-    mini_batch : int or None — out-of-core streaming (gd only; not ported
-        yet: raises at ``fit``).
+    checkpoint_every : int — snapshot the fit loop's carry every N sweeps
+        (steps); 0, the default, never.  A fit killed at a segment boundary
+        and restarted with ``fit(..., resume=True)`` replays the identical
+        float trajectory; the quantized gd snapshots its error-feedback
+        residual too.
+    checkpoint_path : str or None — the HDF5 snapshot (atomic writes;
+        required when ``checkpoint_every > 0``).
+    mini_batch : int or None — rows per chunk of the out-of-core fit (gd
+        only): ``max_iter`` counts epochs over a fixed chunk schedule,
+        ``tol`` is not used, and the ISTA step comes from a power
+        iteration on the first chunk.
     """
 
     def __init__(
@@ -93,6 +104,18 @@ class Lasso(RegressionMixin, BaseEstimator):
         self.checkpoint_path = checkpoint_path
         self.__theta = None
         self.n_iter = None
+
+    def _checkpoint_attrs(self):
+        # fitted state is the name-mangled theta plus the sweep count
+        return ["_Lasso__theta", "n_iter"]
+
+    def _checkpointer(self, algo: str, meta: dict, comm=None, splits=None):
+        """The loop-snapshot driver of this fit configuration."""
+        from ..resilience.resume import LoopCheckpointer
+
+        return LoopCheckpointer(
+            self.checkpoint_path, self.checkpoint_every, algo, meta, comm=comm, splits=splits,
+        )
 
     @property
     def lam(self) -> float:
@@ -139,16 +162,25 @@ class Lasso(RegressionMixin, BaseEstimator):
         est.n_iter = None if n_iter is None else int(n_iter)
         return est
 
-    def fit(self, x: DNDarray, y: DNDarray, resume=False) -> "Lasso":
-        """Fit on ``x`` (``(n, f)``) and ``y`` (``(n,)`` or ``(n, 1)``)."""
-        if self.mini_batch is not None:
-            raise NotImplementedError(
-                "mini_batch streaming fits need io/stream.py (ROADMAP queue A, item 12)"
-            )
-        if self.checkpoint_every or resume:
-            raise NotImplementedError(
-                "checkpoint_every/resume need the resilience layer (ROADMAP queue A, item 16)"
-            )
+    def fit(self, x, y, resume=False, comm=None, device=None) -> "Lasso":
+        """Fit on ``x`` (``(n, f)``) and ``y`` (``(n,)`` or ``(n, 1)``).
+
+        With ``checkpoint_every=N`` the loop runs in N-sweep (step)
+        segments, snapshotting the carry between them; ``resume=True``
+        restarts from the snapshot and finishes bitwise equal to an
+        uninterrupted fit; ``resume="elastic"`` also takes a snapshot of
+        another number of positions.  With ``mini_batch=`` set, or stream
+        sources as inputs, the gd fit streams chunks instead;
+        ``comm``/``device`` place stream inputs (DNDarrays bring their
+        own)."""
+        from ..io import stream as _stream
+
+        if (
+            isinstance(x, _stream.StreamSource)
+            or isinstance(y, _stream.StreamSource)
+            or self.mini_batch is not None
+        ):
+            return self._fit_minibatch_gd(x, y, resume, comm=comm, device=device)
         sanitize_in(x)
         sanitize_in(y)
         if x.ndim != 2:
@@ -161,40 +193,93 @@ class Lasso(RegressionMixin, BaseEstimator):
         cols[0] = 1.0
         cols[1:] = xs.T
         yv = y.larray.reshape(-1).to(device=xs.device, dtype=torch.float32)
-        # the reference compares in float32: tol rounds as it does there
-        tol = float(np.float32(self.tol))
         if self.solver == "gd":
-            theta, n_iter = self._fit_gd(x, cols, yv, tol)
+            theta, n_iter = self._fit_gd(x, cols, yv, resume)
         else:
-            theta, n_iter = self._fit_cd(cols, yv, tol)
+            theta, n_iter = self._fit_cd(cols, yv, resume, comm=x.comm)
         self.n_iter = n_iter
         self.__theta = DNDarray(theta.reshape(-1, 1), (f + 1, 1), types.float32, None, x.device, x.comm)
         return self
 
-    def _fit_cd(self, cols: torch.Tensor, yv: torch.Tensor, tol: float):
+    def _meta(self, n: int, m: int) -> dict:
+        return {"n": n, "m": m, "lam": float(self.__lam), "tol": float(self.tol),
+                "max_iter": int(self.max_iter)}
+
+    def _resume_carry(self, ckpt, resume, device, stacked: bool = False):
+        """The carry ``(it, theta, delta[, error])`` of a snapshot, on
+        ``device``."""
+        state, _ = ckpt.load(elastic=resume == "elastic")
+        carry = (
+            int(state["it"]),
+            torch.as_tensor(state["theta"], dtype=torch.float32).to(device),
+            float(state["delta"]),
+        )
+        if stacked:
+            carry += (torch.as_tensor(state["error"], dtype=torch.float32).to(device),)
+        return carry
+
+    def _run_segments(self, ckpt, carry, total: int, site: str, comm, segment, after=None):
+        """Drive ``segment(carry, stop)`` segment by segment up to
+        ``total`` iterations, snapshotting the carry between segments;
+        ``after(it0, it)`` runs after each segment."""
+        from ..resilience import elastic as _elastic
+
+        while True:
+            it0 = carry[0]
+            stop = ckpt.stop(it0, total)
+            with _elastic.dispatch_guard(site, comm):
+                carry = segment(carry, stop)
+            it = carry[0]
+            if after is not None:
+                after(it0, it)
+            if it >= total or it < stop:
+                # out of iterations, or converged before the boundary
+                return carry
+            snap = {"it": np.int32(it), "theta": carry[1], "delta": np.float32(carry[2])}
+            if len(carry) > 3:
+                snap["error"] = carry[3]
+            ckpt.tick(it, snap)
+
+    def _fit_cd(self, cols: torch.Tensor, yv: torch.Tensor, resume, comm=None):
         """Cyclic coordinate descent: sweeps while ``it < max_iter`` and
-        the last sweep moved a coefficient by more than ``tol``."""
+        the last sweep moved a coefficient by more than ``tol``, in
+        segments of ``checkpoint_every`` sweeps."""
         m, n = cols.shape
+        ckpt = self._checkpointer(
+            "lasso-cd", self._meta(n, m), comm=comm,
+            splits={"it": None, "theta": None, "delta": None},
+        )
+        if resume:
+            carry = self._resume_carry(ckpt, resume, cols.device)
+        else:
+            carry = (0, torch.zeros(m, dtype=torch.float32, device=cols.device), float("inf"))
         sumsq = torch.clamp_min(torch.sum(cols * cols, dim=1), n * 1e-12)
         nlam = n * float(self.__lam)
-        theta = torch.zeros(m, dtype=torch.float32, device=cols.device)
         # views made once: a sweep is host-bound, each op a launch
-        x, ss, th = cols.unbind(0), sumsq.unbind(0), theta.unbind(0)
-        it = 0
-        while it < self.max_iter:
-            prev = theta.clone()
-            old = prev.unbind(0)
-            resid = torch.addmv(yv, cols.T, theta, alpha=-1.0)
-            for j in range(m):
-                # n * rho_j; the intercept (j == 0) is not regularised
-                rho = torch.addcmul(torch.dot(x[j], resid), old[j], ss[j])
-                if j:
-                    rho = Lasso.soft_threshold(rho, nlam)
-                torch.div(rho, ss[j], out=th[j])
-                resid.addcmul_(x[j], th[j] - old[j], value=-1.0)
-            it += 1
-            if not bool((theta - prev).abs().max() > tol):
-                break
+        x, ss = cols.unbind(0), sumsq.unbind(0)
+        # the reference compares in float32: tol rounds as it does there
+        tol = float(np.float32(self.tol))
+
+        def segment(carry, stop):
+            it, theta, delta = carry
+            theta = theta.clone()
+            th = theta.unbind(0)
+            while it < stop and delta > tol:
+                prev = theta.clone()
+                old = prev.unbind(0)
+                resid = torch.addmv(yv, cols.T, theta, alpha=-1.0)
+                for j in range(m):
+                    # n * rho_j; the intercept (j == 0) is not regularised
+                    rho = torch.addcmul(torch.dot(x[j], resid), old[j], ss[j])
+                    if j:
+                        rho = Lasso.soft_threshold(rho, nlam)
+                    torch.div(rho, ss[j], out=th[j])
+                    resid.addcmul_(x[j], th[j] - old[j], value=-1.0)
+                it += 1
+                delta = float((theta - prev).abs().max())
+            return it, theta, delta
+
+        it, theta, _ = self._run_segments(ckpt, carry, int(self.max_iter), "lasso.cd", comm, segment)
         return theta, it
 
     @staticmethod
@@ -207,46 +292,136 @@ class Lasso(RegressionMixin, BaseEstimator):
             v = w / torch.clamp_min(torch.linalg.vector_norm(w), 1e-30)
         return torch.clamp_min(v @ (g @ v), 1e-12)
 
-    def _fit_gd(self, x: DNDarray, cols: torch.Tensor, yv: torch.Tensor, tol: float):
+    def _fit_gd(self, x: DNDarray, cols: torch.Tensor, yv: torch.Tensor, resume):
         """ISTA: ``theta <- prox(theta - step * grad)`` with ``step = 1/L``;
-        exact, or with the gradient partials on the quantized EF ring."""
+        exact, or with the gradient partials on the quantized EF ring; in
+        segments of ``checkpoint_every`` steps."""
         from ..comm import compressed as _cq
 
         m, n = cols.shape
         comm = x.comm
         step = float(1.0 / Lasso._lipschitz(cols))
         thr = float(np.float32(step) * np.float32(self.__lam))
+        tol = float(np.float32(self.tol))
         mode = None
         if x.split == 0 and comm.size > 1 and n % comm.size == 0:
             mode = _cq.reduce_mode(torch.float32, m * 4)
+        meta = self._meta(n, m)
+        splits = {"it": None, "theta": None, "delta": None}
         if mode is not None:
             p = comm.size
             blocks = comm.blocks(cols, 1)  # (p, m, n/p): position p's rows, as columns
-            error = torch.zeros((p, m), dtype=torch.float32, device=cols.device)
-
-        theta = torch.zeros(m, dtype=torch.float32, device=cols.device)
+            ckpt = self._checkpointer("lasso-gd-q", {**meta, "mode": mode}, comm=comm,
+                                      splits={**splits, "error": "mesh"})
+        else:
+            ckpt = self._checkpointer("lasso-gd", meta, comm=comm, splits=splits)
+        if resume:
+            carry = self._resume_carry(ckpt, resume, cols.device, stacked=mode is not None)
+        else:
+            carry = (0, torch.zeros(m, dtype=torch.float32, device=cols.device), float("inf"))
+            if mode is not None:
+                carry += (torch.zeros((p, m), dtype=torch.float32, device=cols.device),)
         neg_y = -yv
-        it = 0
-        while it < self.max_iter:
-            resid = torch.addmv(neg_y, cols.T, theta)  # A theta - y, row by row
-            if mode is None:
-                grad = torch.mv(cols, resid) / n
-            else:
-                partials = torch.bmm(blocks, resid.view(p, -1, 1)).view(p, m)
-                total, error = _cq.ring_allreduce_q_ef(partials, error, size=p, mode=mode)
-                grad = total / n
-            new = theta - step * grad
-            new[1:] = Lasso.soft_threshold(new[1:], thr)
-            delta = (new - theta).abs().max()
-            theta = new
-            it += 1
-            if not bool(delta > tol):
-                break
-        if mode is not None and _tel.enabled and it > 0:
-            # the ring primitive sits below allreduce_q's accounting: one
-            # ledger entry for the loop's ``it`` rings of m values
-            _cq._account_wire("allreduce", mode, m, p, reps=it)
-        return theta, it
+
+        def segment(carry, stop):
+            it, theta, delta = carry[:3]
+            error = carry[3] if mode is not None else None
+            while it < stop and delta > tol:
+                resid = torch.addmv(neg_y, cols.T, theta)  # A theta - y, row by row
+                if mode is None:
+                    grad = torch.mv(cols, resid) / n
+                else:
+                    partials = torch.bmm(blocks, resid.view(p, -1, 1)).view(p, m)
+                    total, error = _cq.ring_allreduce_q_ef(partials, error, size=p, mode=mode)
+                    grad = total / n
+                new = theta - step * grad
+                new[1:] = Lasso.soft_threshold(new[1:], thr)
+                delta = float((new - theta).abs().max())
+                theta = new
+                it += 1
+            return (it, theta, delta) + ((error,) if mode is not None else ())
+
+        def after(it0, it):
+            if mode is not None and _tel.enabled and it > it0:
+                # the ring primitive sits below allreduce_q's accounting:
+                # one ledger entry for the segment's rings of m values
+                _cq._account_wire("allreduce", mode, m, p, reps=it - it0)
+
+        site = "lasso.gd_q" if mode is not None else "lasso.gd"
+        carry = self._run_segments(ckpt, carry, int(self.max_iter), site, comm, segment, after)
+        return carry[1], carry[0]
+
+    def _fit_minibatch_gd(self, x, y, resume=False, comm=None, device=None) -> "Lasso":
+        """Out-of-core proximal-gradient fit: ``max_iter`` epochs of ISTA
+        steps over the chunks of :func:`heat_tpu_torch.io.stream.stream_chunks`,
+        the stream position in the carry ``(it, theta, delta)``.
+
+        The step is ``1/L`` from a power iteration over the first chunk's
+        design matrix, recomputed on every (re)entry.  Each step computes
+        on the chunk's first ``mini_batch`` rows, a shape no number of
+        positions changes, with the row mask ``arange(mb) < nvalid`` as the
+        intercept column: pad rows are zero in the design matrix and in
+        ``y`` and add nothing to the gradient, so the trajectory is a pure
+        function of the byte stream and an elastic resume is bitwise."""
+        if self.mini_batch is None:
+            raise ValueError("streaming fit requires Lasso(solver='gd', mini_batch=...)")
+        from ..core import factories
+        from ..io import stream as _stream
+
+        for d in (x, y):
+            if isinstance(d, DNDarray):
+                device = d.device if device is None else device
+                comm = d.comm if comm is None else comm
+        device, comm = factories._setup(device, comm)
+        srcx = _stream.as_source(x)
+        srcy = _stream.as_source(y)
+        if len(srcx.shape) != 2:
+            raise ValueError(f"x needs to be 2D, but was {len(srcx.shape)}D")
+        ynd = len(srcy.shape)
+        if ynd > 2 or (ynd == 2 and srcy.shape[1] != 1):
+            raise ValueError("y needs to be 1D or a single column")
+
+        n, f = srcx.shape
+        m = f + 1
+        mb = self.mini_batch
+        h = max(1, -(-n // mb))
+        total = int(self.max_iter) * h
+        dev = comm.device
+
+        nv0 = min(mb, n)
+        x0 = torch.as_tensor(np.asarray(srcx.read(0, nv0), dtype=np.float32)).to(dev)
+        cols0 = torch.cat([torch.ones((1, nv0), dtype=torch.float32, device=dev), x0.T])
+        step = float(1.0 / Lasso._lipschitz(cols0))
+        thr = float(np.float32(step) * np.float32(self.__lam))
+
+        meta = {"n": n, "m": m, "lam": float(self.__lam), "mb": mb, "max_iter": int(self.max_iter)}
+        ckpt = self._checkpointer("lasso-mb", meta, comm=comm,
+                                  splits={"it": None, "theta": None, "delta": None})
+        if resume:
+            carry = self._resume_carry(ckpt, resume, dev)
+        else:
+            carry = (0, torch.zeros(m, dtype=torch.float32, device=dev), float("inf"))
+        rows = torch.arange(mb, device=dev)
+
+        def segment(carry, stop):
+            it, theta, delta = carry
+            for (xc, yc), nv in _stream.stream_chunks(
+                (srcx, srcy), mb, it, stop, comm=comm, device=device
+            ):
+                w = (rows < nv).to(torch.float32)
+                a = torch.cat([w[:, None], xc[:mb]], dim=1)
+                grad = a.T @ (a @ theta - yc[:mb].reshape(mb)) / float(nv)
+                new = theta - step * grad
+                new[1:] = Lasso.soft_threshold(new[1:], thr)
+                delta = (new - theta).abs().max()
+                theta = new
+                it += 1
+            return it, theta, float(delta)
+
+        it, theta, _ = self._run_segments(ckpt, carry, total, "lasso.mb", comm, segment)
+        self.n_iter = it
+        self.__theta = DNDarray(theta.reshape(-1, 1), (m, 1), types.float32, None, device, comm)
+        return self
 
     def predict(self, x: DNDarray) -> DNDarray:
         """``y = theta_0 + x @ theta_1:``, ``(n, 1)``, row-split when ``x``

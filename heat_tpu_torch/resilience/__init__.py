@@ -21,14 +21,21 @@ boundaries, around the kernels and never inside them:
     deadlines and bounded attempts; every attempt lands in the incident
     log and on the telemetry counters.
 
+:mod:`~heat_tpu_torch.resilience.resume`
+    ``checkpoint_every=N`` / ``resume=True`` on the iterative solvers:
+    segmented fit loops whose carry (the error-feedback residual
+    included) snapshots atomically through the IO layer, with a
+    bitwise-identical resume.
+
+:mod:`~heat_tpu_torch.resilience.elastic`
+    ``resume="elastic"`` / ``elastic.recover(...)``: survive the loss (or
+    arrival) of positions by migrating the snapshot's stacked carry onto
+    the new mesh; the deadline watchdog classifies over-budget dispatches
+    as suspected-lost ranks.
+
 :mod:`~heat_tpu_torch.resilience.incidents`
     the structured incident log behind all of them; every incident also
     dumps a flight-recorder postmortem.
-
-The reference's ``resume`` and ``elastic`` modules (``LoopCheckpointer``,
-``load_loop_state``/``save_loop_state``, ``MeshMismatchError``,
-``DeadlineWatchdog``, ``grow``, ``recover``, ``set_watchdog``) save
-through the IO layer and come after it.
 """
 
 from __future__ import annotations
@@ -42,27 +49,44 @@ from .guards import (
     set_guard_policy,
 )
 from .incidents import Incident, clear_incident_log, incident_log
+from .resume import (
+    LoopCheckpointer,
+    MeshMismatchError,
+    load_loop_state,
+    save_loop_state,
+)
 from .retry import RetryPolicy
+from .elastic import DeadlineWatchdog, grow, recover, set_watchdog
 # NOTE: bound last on purpose — `retry` must stay the submodule at the
 # package level (the engine function is retry.retry / retry.call)
-from . import faults, guards, incidents, retry
+from . import elastic, faults, guards, incidents, resume, retry
 
 __all__ = [
+    "DeadlineWatchdog",
     "DeviceArrival",
     "DeviceLossError",
     "GuardWarning",
     "Incident",
+    "LoopCheckpointer",
+    "MeshMismatchError",
     "NumericalHealthError",
     "Preempted",
     "RetryPolicy",
     "clear_incident_log",
+    "elastic",
     "faults",
     "get_guard_policy",
+    "grow",
     "guard",
     "guards",
     "incident_log",
     "incidents",
     "inject",
+    "load_loop_state",
+    "recover",
+    "resume",
     "retry",
+    "save_loop_state",
     "set_guard_policy",
+    "set_watchdog",
 ]

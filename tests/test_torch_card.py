@@ -52,6 +52,14 @@ the card and an unguarded one none; telemetry on or off launches the same
 kernels with bitwise equal results; and ``start_trace(...,
 device_trace_dir=...)`` writes a ``torch.profiler`` trace that names the
 quantize, hop and dequantize kernels.
+
+The stream: the pinned, double-buffered copies of ``stream_chunks`` give
+the serial stream's chunks bit for bit (each the host rows, zero-padded)
+with slab peaks 2 and 1; a checkpointed ``int8_block`` Lasso gd at 4
+positions killed after its second snapshot and resumed is bitwise the
+uninterrupted fit, the pair launching what the uninterrupted fit launches
+(it skips where ``h5py``, which the snapshots are written with, is not
+installed).
 """
 
 import importlib
@@ -989,3 +997,79 @@ def test_device_trace_names_the_blockquant_kernels(cuda_device, tmp_path):
     (dev,) = list((tmp_path / "dev").iterdir())
     names = chip_smoke.trace_kernel_names(dev.read_text())
     assert set(chip_smoke.TRACE_SYMBOLS) <= names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,mb", [(103, 16), (20_000, 2_500)])
+def test_pinned_prefetch_chunks_on_card_bitwise_the_serial_stream(cuda_device, rows, mb):
+    """The stream's pinned, double-buffered copies give the serial
+    stream's chunks bit for bit, each the host rows zero-padded, with at
+    most 2 slabs live (1 without prefetch); a kernel queued on the
+    consuming stream behind each chunk sees the chunk's bytes even while
+    the next chunk's copy runs."""
+    from heat_tpu_torch.io import stream
+
+    x = np.random.default_rng(rows).normal(size=(rows, 7)).astype(np.float32)
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    h = -(-rows // mb)
+    runs = {}
+    try:
+        for mode in ("off", "on"):
+            stream.set_prefetch(mode)
+            stream.reset_slab_peak()
+            got = []
+            for (chunk,), nv in stream.stream_chunks(stream.ArraySource(x), mb, 0, 2 * h, comm=comm):
+                got.append((chunk * 1.0, nv))  # read on the consuming stream
+            runs[mode] = (got, stream.slab_peak())
+    finally:
+        stream.set_prefetch("auto")
+    assert (runs["off"][1], runs["on"][1]) == (1, 2)
+    width = -(-mb // 4) * 4
+    for step, ((a, na), (b, nb)) in enumerate(zip(runs["off"][0], runs["on"][0])):
+        lo = (step % h) * mb
+        assert na == nb == min(rows, lo + mb) - lo
+        want = np.zeros((width, 7), np.float32)
+        want[:na] = x[lo:lo + na]
+        assert _bitwise(a, b)
+        assert _bitwise(a.cpu(), torch.from_numpy(want))
+    assert stream.prefetch_enabled(cuda_device)
+
+
+@pytest.mark.gpu
+def test_resumed_int8_lasso_on_card_is_bitwise_and_launches_the_same(cuda_device, tmp_path):
+    """A checkpointed int8_block Lasso gd at 4 positions, killed after its
+    second snapshot and resumed, is bitwise the uninterrupted fit and the
+    pair launches exactly what the uninterrupted fit launches."""
+    from heat_tpu_torch.resilience import faults
+    from heat_tpu_torch.resilience.faults import Preempted
+
+    if not htt.io.supports_hdf5():
+        pytest.skip("h5py is not installed: loop snapshots are HDF5")
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4096, 12)).astype(np.float32)
+    y = (x @ rng.normal(size=12) + 0.1 * rng.normal(size=4096)).astype(np.float32)
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    X, Y = htt.array(x, split=0, comm=comm), htt.array(y, split=0, comm=comm)
+    counted = (tcq.quantize_blocks, tcq.dequantize_add_quantize_blocks, tcq.dequantize_blocks,
+               tcq.dequantize_fma_blocks)
+    path = str(tmp_path / "ls.h5")
+
+    def fit(**kw):
+        return htt.regression.Lasso(lam=0.05, max_iter=40, tol=-1.0, solver="gd", **kw)
+
+    counts = []
+    with tcq.collective_precision("int8_block"):
+        for fn in counted:
+            fn.launches = 0
+        clean = fit().fit(X, Y)
+        counts.append([fn.launches for fn in counted])
+        for fn in counted:
+            fn.launches = 0
+        with pytest.raises(Preempted):
+            with faults.inject("preempt", site="iteration", nth=2):
+                fit(checkpoint_every=10, checkpoint_path=path).fit(X, Y)
+        resumed = fit(checkpoint_every=10, checkpoint_path=path).fit(X, Y, resume=True)
+        counts.append([fn.launches for fn in counted])
+    assert counts[0] == counts[1] == [80, 120, 40, 40]
+    assert resumed.n_iter == 40
+    assert _bitwise(resumed.theta.larray, clean.theta.larray)

@@ -41,10 +41,6 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
     "communication": {"init_multihost": "A3b"},
-    # the base layer: the names of the resume and elastic modules
-    "resilience": {n: "A16b" for n in (
-        "resume", "elastic", "LoopCheckpointer", "MeshMismatchError", "save_loop_state",
-        "load_loop_state", "DeadlineWatchdog", "grow", "recover", "set_watchdog")},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
@@ -58,6 +54,7 @@ PORTED_MODULES = [
     "arithmetics", "factories", "indexing", "printing", "dndarray", "_operations", "base",
     "exponential", "logical", "relational", "rounding", "statistics", "trigonometrics", "random",
     "linalg.basics", "linalg.qr", "linalg.svd", "linalg.solver", "manipulations", "tiling",
+    "io", "checkpoint",
 ]
 
 
@@ -67,6 +64,7 @@ BASE_MODULES = [
     "telemetry", "telemetry._core", "telemetry.hist", "telemetry.flight", "telemetry.slo",
     "telemetry.export", "telemetry.httpz", "net._base", "resilience", "resilience.faults",
     "resilience.guards", "resilience.incidents", "resilience.retry", "resilience.fixtures",
+    "resilience.resume", "resilience.elastic", "io", "io.stream", "datasets", "obs", "native",
 ]
 
 
@@ -84,6 +82,21 @@ def test_package_exports_telemetry_and_resilience():
     assert htt.telemetry is importlib.import_module("heat_tpu_torch.telemetry")
     assert htt.resilience is importlib.import_module("heat_tpu_torch.resilience")
     assert htt.resilience.retry is importlib.import_module("heat_tpu_torch.resilience.retry")
+
+
+def test_package_exports_io_checkpoints_datasets_and_obs():
+    """``htt.io`` is the io package (as ``ht.io``), the flat loaders and
+    the checkpoint functions sit in the flat namespace, and every such
+    name of the reference's flat namespace is the port's."""
+    assert htt.io is importlib.import_module("heat_tpu_torch.io")
+    assert htt.io.stream is importlib.import_module("heat_tpu_torch.io.stream")
+    assert htt.datasets is importlib.import_module("heat_tpu_torch.datasets")
+    assert htt.obs is importlib.import_module("heat_tpu_torch.obs")
+    names = set(ht.core.io.__all__) | set(ht.core.checkpoint.__all__)
+    for n in names:
+        assert getattr(htt, n) is getattr(htt.core, n), n
+    assert htt.load is htt.io.load and htt.save_estimator is htt.core.checkpoint.save_estimator
+    assert htt.BaseEstimator.save and htt.BaseEstimator.load
 
 
 @pytest.mark.parametrize("name", PORTED_MODULES)

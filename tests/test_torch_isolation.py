@@ -66,6 +66,10 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.resilience", "heat_tpu_torch.resilience.incidents",
         "heat_tpu_torch.resilience.retry", "heat_tpu_torch.resilience.faults",
         "heat_tpu_torch.resilience.guards", "heat_tpu_torch.resilience.fixtures",
+        "heat_tpu_torch.resilience.resume", "heat_tpu_torch.resilience.elastic",
+        "heat_tpu_torch.core.io", "heat_tpu_torch.core.checkpoint", "heat_tpu_torch.io",
+        "heat_tpu_torch.io.stream", "heat_tpu_torch.native", "heat_tpu_torch.datasets",
+        "heat_tpu_torch.obs", "heat_tpu_torch.cluster.kmeans",
     ]
     proc = _run(
         "import importlib, sys\n"
@@ -140,6 +144,57 @@ def test_base_layer_runs_without_jax_or_heat_tpu():
         " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_reference_checkpoints_and_snapshots_load_without_jax_or_heat_tpu(tmp_path):
+    """``htt.load_estimator`` of files the JAX package wrote (a KMeans, a
+    Lasso), an elastic resume from its 8-device loop snapshot at one
+    position, a mini-batch fit streamed
+    from its NetCDF-3 file and its CSV through the native scanner, in a
+    fresh interpreter with neither jax nor heat_tpu imported."""
+    import numpy as np
+
+    import heat_tpu as ht
+
+    x = np.random.default_rng(3).normal(size=(32, 3)).astype(np.float32)
+    y = (x @ np.array([1.0, -1.0, 2.0], np.float32)).astype(np.float32)
+    ht.cluster.KMeans(n_clusters=2, init=ht.array(x[:2]), max_iter=5).fit(ht.array(x)).save(str(tmp_path / "km.h5"))
+    ht.regression.Lasso(lam=0.01, max_iter=10).fit(ht.array(x), ht.array(y)).save(str(tmp_path / "ls.h5"))
+    ht.save_netcdf(ht.array(x), str(tmp_path / "x.nc"), "x")
+    ht.save_csv(ht.array(x), str(tmp_path / "x.csv"))
+    ht.save_csv(ht.array(y), str(tmp_path / "y.csv"))
+    from heat_tpu.resilience import faults as rfaults
+
+    try:
+        with rfaults.inject("preempt", site="iteration", nth=1):
+            ht.regression.Lasso(lam=0.01, max_iter=10, tol=-1.0, checkpoint_every=4,
+                                checkpoint_path=str(tmp_path / "snap.h5")).fit(ht.array(x), ht.array(y))
+    except rfaults.Preempted:
+        pass
+    proc = _run(
+        "import sys, numpy as np, heat_tpu_torch as htt\n"
+        "htt.use_device('cpu')\n"
+        f"d = {str(tmp_path)!r}\n"
+        "km = htt.load_estimator(d + '/km.h5')\n"
+        "ls = htt.load_estimator(d + '/ls.h5')\n"
+        "assert type(km).__module__ == 'heat_tpu_torch.cluster.kmeans' and km.n_iter_ == 5\n"
+        "x = htt.load_csv(d + '/x.csv')\n"
+        "assert km.predict(x).shape == (32,) and ls.predict(x).shape == (32, 1)\n"
+        "src = htt.io.NetCDFSource(d + '/x.nc', 'x')\n"
+        "mb = htt.cluster.KMeans(n_clusters=2, mini_batch=8, max_iter=2).fit(src)\n"
+        "assert mb.n_iter_ == 8\n"
+        "r = htt.regression.Lasso(lam=0.01, max_iter=10, tol=-1.0, checkpoint_every=4,"
+        " checkpoint_path=d + '/snap.h5')\n"
+        "r.fit(x, htt.load_csv(d + '/y.csv'), resume='elastic')\n"
+        "assert r.n_iter == 10\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n",
+        CUDA_VISIBLE_DEVICES="",
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"

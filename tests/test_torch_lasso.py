@@ -254,12 +254,15 @@ def test_validation_matches_reference(port):
         htt.regression.Lasso().fit(x, htt.ones((8, 2)))
     with pytest.raises(RuntimeError):
         htt.regression.Lasso().predict(x)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        htt.regression.Lasso(solver="gd", mini_batch=4).fit(x, y)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        htt.regression.Lasso(checkpoint_every=2, checkpoint_path="x.h5").fit(x, y)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        htt.regression.Lasso().fit(x, y, resume=True)
+    # mini-batch and checkpointed fits are ported (ROADMAP A12, A16b):
+    # a mini-batch fit runs, and a snapshot or a resume without a path
+    # raises as the reference's does
+    assert htt.regression.Lasso(solver="gd", mini_batch=4, max_iter=2).fit(x, y).n_iter == 4
+    for pkg, xx, yy in ((htt, x, y), (ht, ht.ones((8, 3), split=0), ht.ones(8, split=0))):
+        with pytest.raises(ValueError, match="checkpoint_every > 0 requires checkpoint_path"):
+            pkg.regression.Lasso(checkpoint_every=2).fit(xx, yy)
+        with pytest.raises(ValueError, match="resume requires checkpoint_path"):
+            pkg.regression.Lasso().fit(xx, yy, resume=True)
     fitted = htt.regression.Lasso(max_iter=3).fit(x, y)
     with pytest.raises(ValueError):
         fitted.predict(htt.ones((4, 2)))
