@@ -217,6 +217,40 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    and loaded, its predictions equal.  Each step prints its wall time and
    device time (one call under ``torch.profiler``), and the phase
    ``phase13_s``.
+14. the compiled-program layer (``htt.fuse``: one CUDA-graph replay a
+   call) at the reference benchmark's sizes.  (1) The library's fused
+   programs on the blobs at 1 position: ``KMeans.predict`` (k = 8),
+   GaussianNB's ``predict``, ``predict_log_proba`` and ``predict_proba``
+   (8 classes), ``Lasso.predict`` (33 coefficients), ``kurtosis`` and
+   ``skew`` along axis 0, each bitwise its program run eagerly, with its
+   build time (warm-up, capture, first replay), peak memory, wall and
+   device time beside the eager call's, host synchronize calls and
+   ``cudaGraphLaunch`` calls a call (exactly 1); the bytes the cached
+   programs hold; the bounded cache: ``KMeans.predict`` on 8 row counts
+   under a 256 MiB limit holds at most the limit, and the graph pools,
+   the live allocations and (once the allocator lets its free blocks go)
+   the reserved memory grow by at most the limit plus 64 MiB.  ``svd`` of
+   131 072 x 64 stays unfused: a subprocess shows that capturing its pipeline raises
+   (cuSOLVER's ``gesvdj`` fails under capture) and prints the error.  (2) The
+   ``int8_block`` path in a graph: mean and std along axis 0 of a (64,
+   2^20) float32 array split over rows at FOUR positions (each ring 2^20
+   values a position), bitwise the eager call, the profiler finding the
+   eager call's kernels in the replay (2 quantize, 6 hops, 2 dequantize).
+   (3) The same pipeline under a ``"degrade"`` guard: healthy, one scalar
+   read a call and no incident; a NaN in the input, the exact re-run's
+   result and the reference's incidents (degraded, then unrecoverable:
+   the exact path is unhealthy too); an overflow limit between the exact
+   and the quantized result, one incident and the exact result bitwise.
+   (4) B3 in a graph: a fused bf16 causal ``flash_attention`` at S = 4096,
+   H = 16, D = 64, bitwise the eager call; the build records one kernel,
+   and in a process of its own the profiler reads one flash kernel in
+   each replay (it drops them in the full run).  (5) AOT:
+   the library programs captured, exported, pickled, the cache cleared and
+   the bundles installed: no ``fuse.cache.misses`` over the next call of
+   each, results bitwise the pre-export ones; a bundle of another
+   fingerprint skipped.  (6) A pipeline calling ``float()`` on a DNDarray
+   raises ``FuseTraceError``.  Every line carries the card's name and
+   power limit; the phase prints ``phase14_s``.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -360,6 +394,18 @@ KM_TIE = 1e-4
 #: steps a snapshot every 10, Lasso gd 1000 steps every 250, each killed
 #: by a seeded preemption after its second snapshot and resumed
 CKPT_KM_EVERY, CKPT_LASSO_EVERY, CKPT_KILL_AT = 10, 250, 2
+#: phase 14: the int8_block pipeline's operand, 64 rows of 2^20 values
+#: split over rows at 4 positions (each allreduce carries 2^20 values a
+#: position, as phase 12's allreduce_q), and the kernels one call of its
+#: mean and std launches there (two rings of 1 quantize, 3 hops, 1 dequantize)
+P14_ROWS = 64
+P14_RING = {"blockquant_quantize": 2, "blockquant_dequantize_add_quantize": 6,
+            "blockquant_dequantize": 2}
+#: phase 14's bounded fuse cache: KMeans.predict on 8 row counts of the
+#: blobs, 25 000 rows apart, under a 256 MiB limit; the graph pools, the
+#: live allocations and (once the allocator lets its free blocks go) the
+#: reserved memory may grow by the limit plus this much (outputs in flight)
+FUSE_BOUND_LIMIT, FUSE_BOUND_STEP, FUSE_BOUND_SLACK = 256 << 20, 25_000, 64 << 20
 #: phase 12's armed plans, each firing on the first allreduce: NaN and
 #: +Inf written to element 0, the 1e36 saturation, the bit-30 flip
 PHASE12_FAULTS = (("nonfinite", {}), ("nonfinite", {"value": float("inf")}), ("saturate", {}),
@@ -3039,6 +3085,401 @@ def phase_io_stream(torch, htt, cq, dev, data, centers, counted):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------- #
+# phase 14: the compiled-program layer                                     #
+# ---------------------------------------------------------------------- #
+def _moments14(a):
+    import heat_tpu_torch as htt
+
+    return htt.mean(a, axis=0), htt.std(a, axis=0)
+
+
+def _attention14(q, k, v):
+    import importlib
+
+    fa = importlib.import_module("heat_tpu_torch.parallel.flash_attention")
+    return fa.flash_attention(q, k, v, causal=True)
+
+
+def _forces_value14(a):
+    return a * float(a.sum())
+
+
+def replay_profile(torch, fn, tries: int = 3):
+    """One call of ``fn`` (after a warm-up) under ``torch.profiler``:
+    ``(device ms, host synchronize calls, cudaGraphLaunch calls, device
+    kernel counts by name)``, the synchronize calls less those of the
+    profiler's own fence.  The profiler drops a whole call's kernels now
+    and then (PERF.md), never adds any: of ``tries`` profiled calls the
+    one with the most device time is kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def one(f):
+        f()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            f()
+            torch.cuda.synchronize()
+        total, syncs, graphs, kernels = 0.0, 0, 0, {}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                if "Synchronize" in evt.key:
+                    syncs += int(evt.count)
+                if evt.key == "cudaGraphLaunch":
+                    graphs += int(evt.count)
+                continue
+            if evt.key.startswith("Activity Buffer"):
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            total += float(us if us is not None else getattr(evt, "self_cuda_time_total", 0.0))
+            kernels[evt.key] = kernels.get(evt.key, 0) + int(evt.count)
+        return total / 1e3, syncs, graphs, kernels
+
+    ms, syncs, graphs, kernels = max((one(fn) for _ in range(tries)), key=lambda r: r[0])
+    return ms, syncs - one(lambda: None)[1], graphs, kernels
+
+
+def ring_kernels(kernels: dict) -> dict:
+    """Launches of B1, the hop and B2 among profiled kernel names."""
+    out = {}
+    for name, symbols in TRACE_SYMBOLS.items():
+        out[name] = sum(n for key, n in kernels.items() if any(sym in key for sym in symbols))
+    return out
+
+
+def _svd_probe_code(m: int, n: int) -> str:
+    return (
+        "import numpy as np, torch, heat_tpu_torch as htt\n"
+        "import importlib\n"
+        "S = importlib.import_module('heat_tpu_torch.core.linalg.svd')\n"
+        "dev = torch.device('cuda', 0)\n"
+        "comm = htt.TorchCommunication([dev])\n"
+        f"a = htt.array(np.random.default_rng(0).standard_normal(({m}, {n})).astype(np.float32),"
+        " split=0, comm=comm)\n"
+        "htt.linalg.svd(a)\n"
+        "assert htt.fuse.cache_size() == 0, 'svd built a fused program'\n"
+        "try:\n"
+        "    htt.fuse(S._svd_pipeline)(a, 0, a.dtype, True)\n"
+        "    print('CAPTURED')\n"
+        "except htt.FuseTraceError as e:\n"
+        "    print('FUSETRACEERROR ' + str(e).splitlines()[0])\n"
+        "except RuntimeError as e:\n"
+        "    import traceback\n"
+        "    first = e.__cause__.__context__ if e.__cause__ is not None else None\n"
+        "    frames = traceback.extract_tb(first.__traceback__) if first is not None else []\n"
+        "    ours = [f for f in frames if 'heat_tpu_torch' in f.filename]\n"
+        "    at = f'{ours[-1].filename.split(\"heat_tpu_torch/\")[-1]}:{ours[-1].lineno} {ours[-1].line}' if ours else '?'\n"
+        "    print('RAISED ' + str(first or e).splitlines()[0] + ' | at ' + at)\n"
+    )
+
+
+def graph_pool_bytes(torch) -> int:
+    """Bytes reserved in graph memory pools (segments outside the caching
+    allocator's default pool, which no eager op can use)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def _b3_replay_probe_code(shape, tries: int) -> str:
+    """Phase 14's B3 program alone in a fresh process, its replays under
+    the profiler (which drops B3's kernels in the full run, PERF.md)."""
+    return (
+        "import json, importlib\n"
+        "import numpy as np, torch\n"
+        "from torch.autograd import DeviceType\n"
+        "from torch.profiler import ProfilerActivity, profile\n"
+        "import heat_tpu_torch as htt\n"
+        "fa = importlib.import_module('heat_tpu_torch.parallel.flash_attention')\n"
+        "def attention(q, k, v):\n"
+        "    return fa.flash_attention(q, k, v, causal=True)\n"
+        "dev = torch.device('cuda', 0)\n"
+        "rng = np.random.default_rng(14)\n"
+        f"q, k, v = [torch.from_numpy(rng.normal(size={tuple(shape)}).astype(np.float32)).to(dev)"
+        ".to(torch.bfloat16) for _ in range(3)]\n"
+        "fused = htt.fuse(attention)\n"
+        "out = fused(q, k, v)\n"
+        "ok = bool(torch.equal(out.view(torch.int16), attention(q, k, v).view(torch.int16)))\n"
+        "rows = []\n"
+        f"for _ in range({tries}):\n"
+        "    torch.cuda.synchronize()\n"
+        "    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:\n"
+        "        fused(q, k, v)\n"
+        "        torch.cuda.synchronize()\n"
+        "    ev = prof.key_averages()\n"
+        "    rows.append([sum(int(e.count) for e in ev if e.device_type == DeviceType.CUDA"
+        " and 'flash_kernel' in e.key), sum(int(e.count) for e in ev if e.key == 'cudaGraphLaunch')])\n"
+        "print('B3REPLAY ' + json.dumps({'bitwise': ok, 'replays': rows}))\n"
+    )
+
+
+def phase_compiled(torch, htt, cq, dev, data, labels, counted, card):
+    """Phase 14 (see the module docstring): the fused library programs, the
+    int8_block pipeline and B3 in a graph, a guarded program, AOT bundles
+    and the no-fallback contract.  Returns ``(launches, metrics)``."""
+    import pickle
+
+    from heat_tpu_torch.cluster import _kcluster
+    from heat_tpu_torch.core import aot
+    from heat_tpu_torch.core import statistics as st
+    from heat_tpu_torch.naive_bayes import gaussianNB as gnb
+    from heat_tpu_torch.regression import lasso as plasso
+    from heat_tpu_torch.resilience import guards, incidents
+    from heat_tpu_torch.telemetry import _core as tel
+
+    fa = __import__("importlib").import_module("heat_tpu_torch.parallel.flash_attention")
+    metrics = {}
+    for f in counted:
+        f.launches = 0
+    fa.flash_attention.launches = 0
+    htt.fuse.clear_cache()
+
+    def program(name, fused, eager, extra="", counter=None):
+        """Build ``fused`` (timed, peak memory; ``counter()`` read around the
+        build, for a kernel wrapper's launches), hold it bitwise to
+        ``eager``, then time and profile both."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        n0 = counter() if counter else 0
+        t0 = time.perf_counter()
+        out = fused()
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        built = counter() - n0 if counter else None
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        want = eager()
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want if isinstance(want, tuple) else (want,)
+        for o, w in zip(outs, wants):
+            o = o.larray if hasattr(o, "larray") else o
+            w = w.larray if hasattr(w, "larray") else w
+            check(bitwise_equal(o, w), f"phase 14 {name}: fused != eager, bitwise")
+        wall, ewall = wall_ms(fused), wall_ms(eager)
+        dev_ms, syncs, graphs, kernels = replay_profile(torch, fused)
+        edev_ms, esyncs, _, _ = replay_profile(torch, eager)
+        check(graphs == 1, f"phase 14 {name}: {graphs} cudaGraphLaunch calls a call, want 1")
+        row = {"build_ms": build_ms, "peak_mb": peak_mb, "wall_ms": wall, "device_ms": dev_ms,
+               "syncs": syncs, "graph_launches": graphs, "eager_wall_ms": ewall,
+               "eager_device_ms": edev_ms, "eager_syncs": esyncs}
+        metrics[f"fuse_{name}"] = row
+        eread = f"{edev_ms:.4f} ms device" if edev_ms else "device time not read (the profiler dropped it)"
+        row["built_launches"] = built
+        print(f"  {name}: build {build_ms:.1f} ms (peak +{peak_mb:.1f} MiB), fused {wall:.3f} ms wall / "
+              f"{dev_ms:.4f} ms device / {syncs} syncs / {graphs} graph launch, eager {ewall:.3f} ms wall / "
+              f"{eread} / {esyncs} syncs; bitwise{extra} [{card}]")
+        return kernels, built
+
+    # ---------------------------------------------------------------- 14.1
+    comm1 = htt.TorchCommunication([dev])
+    X = htt.array(data, split=0, comm=comm1)
+    # one row of each blob (the blobs are stacked in order) as the centers
+    init = htt.array(np.ascontiguousarray(data[:: N // K][:K]), comm=comm1)
+    km = htt.cluster.KMeans(n_clusters=K, init=init, max_iter=2, tol=-1.0).fit(X)
+    nb = htt.naive_bayes.GaussianNB().fit(X, htt.array(labels, split=0, comm=comm1))
+    la = htt.regression.Lasso(lam=LASSO_LAM, max_iter=3).fit(X, htt.array(lasso_target(data), split=0,
+                                                                          comm=comm1))
+    theta, sigma, prior = (torch.as_tensor(t, device=dev) for t in nb._fit_params())
+    classes = torch.as_tensor(np.asarray(nb.classes_), device=dev)
+    library = [
+        ("kmeans_predict", lambda: km.predict(X),
+         lambda: _kcluster._assign_program(X, km.cluster_centers_, km._metric)),
+        ("nb_predict", lambda: nb.predict(X),
+         lambda: gnb._nb_predict_program(X, theta, sigma, prior, classes)),
+        ("nb_predict_log_proba", lambda: nb.predict_log_proba(X),
+         lambda: gnb._nb_log_proba_program(X, theta, sigma, prior)),
+        ("nb_predict_proba", lambda: nb.predict_proba(X),
+         lambda: gnb._nb_proba_program(X, theta, sigma, prior)),
+        ("lasso_predict", lambda: la.predict(X), lambda: plasso._lasso_predict_program(X, la.theta)),
+        ("kurtosis", lambda: htt.kurtosis(X, axis=0), lambda: st._kurtosis_program(X, 0, True, True)),
+        ("skew", lambda: htt.skew(X, axis=0), lambda: st._skew_program(X, 0, True)),
+    ]
+    for name, fused, eager in library:
+        program(name, fused, eager)
+    metrics["fuse_cache_bytes_library"] = htt.fuse.cache_bytes(dev)
+    print(f"  the {htt.fuse.cache_size()} cached programs hold {metrics['fuse_cache_bytes_library'] / 2 ** 20:.1f} "
+          f"MiB (static inputs and the graph pool; default limit "
+          f"{torch.cuda.get_device_properties(dev).total_memory // 8 / 2 ** 30:.1f} GiB) [{card}]")
+    # the bounded cache: KMeans.predict over 8 row counts of the blobs
+    limit = FUSE_BOUND_LIMIT
+    sizes = [N - FUSE_BOUND_STEP * i for i in (3, 0, 6, 1, 7, 2, 5, 4)]
+    xs = [htt.array(data[:n], split=0, comm=comm1) for n in sizes]
+    unbounded = sum(x.larray.numel() * 4 for x in xs)
+    prev_limit = htt.fuse.set_cache_limit(limit)
+    htt.fuse.clear_cache()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pools0, allocated0 = graph_pool_bytes(torch), torch.cuda.memory_allocated(dev)
+        reserved0 = torch.cuda.memory_reserved(dev)
+        held = pools = allocated = 0
+        for x in xs:
+            got = km.predict(x)
+            check(bitwise_equal(got.larray, _kcluster._assign_program(x, km.cluster_centers_, km._metric).larray),
+                  "phase 14 bounded cache: fused KMeans.predict != eager, bitwise")
+            del got
+            held = max(held, htt.fuse.cache_bytes(dev))
+            pools = max(pools, graph_pool_bytes(torch) - pools0)
+            allocated = max(allocated, torch.cuda.memory_allocated(dev) - allocated0)
+        kept = htt.fuse.cache_size()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev) - reserved0
+    finally:
+        htt.fuse.set_cache_limit(prev_limit)
+        htt.fuse.clear_cache()
+    check(held <= limit and max(pools, allocated, reserved) <= limit + FUSE_BOUND_SLACK,
+          f"phase 14 bounded cache: held {held >> 20}, graph pools {pools >> 20}, allocated {allocated >> 20}, "
+          f"reserved {reserved >> 20} MiB over a {limit >> 20} MiB limit")
+    metrics["fuse_bounded"] = {"limit_mb": limit / 2 ** 20, "held_max_mb": held / 2 ** 20,
+                               "graph_pools_max_mb": pools / 2 ** 20, "allocated_max_mb": allocated / 2 ** 20,
+                               "reserved_after_mb": reserved / 2 ** 20, "programs_kept": kept,
+                               "static_inputs_of_all_mb": unbounded / 2 ** 20}
+    print(f"  bounded cache: KMeans.predict on {len(sizes)} row counts ({min(sizes)}-{max(sizes)}) under a "
+          f"{limit >> 20} MiB limit: {kept} programs kept; at most {held / 2 ** 20:.1f} MiB held, "
+          f"{pools / 2 ** 20:.1f} MiB in graph pools, {allocated / 2 ** 20:.1f} MiB more allocated; "
+          f"{reserved / 2 ** 20:.1f} MiB more reserved once the allocator lets its free blocks go (the 8 "
+          f"programs' static inputs alone: {unbounded / 2 ** 20:.1f} MiB); bitwise [{card}]")
+    del xs
+    labels_ok = float((km.predict(X).numpy() == km.labels_.numpy()).mean())
+    check(labels_ok >= 0.9999, f"phase 14 fused KMeans.predict agrees with the fit on {labels_ok}")
+    proc = subprocess.run([sys.executable, "-c", _svd_probe_code(QR_M, QR_N)], capture_output=True,
+                          text=True, timeout=300)
+    probe = (proc.stdout.strip().splitlines() or [proc.stderr.strip()[-300:]])[-1]
+    check(proc.returncode == 0 and probe.startswith("RAISED"),
+          f"phase 14 svd pipeline capture probe: rc {proc.returncode}, {probe}")
+    metrics["svd_capture"] = probe
+    print(f"  svd {QR_M} x {QR_N}: left unfused; its capture: {probe} [{card}]")
+
+    # ---------------------------------------------------------------- 14.2
+    comm4 = htt.TorchCommunication([dev] * POSITIONS)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    X14 = htt.array(torch.randn((P14_ROWS, PAYLOAD), generator=gen, device=dev), split=0, comm=comm4)
+    fused_moments = htt.fuse(_moments14)
+    with cq.collective_precision("int8_block"):
+        kernels, _ = program("int8_moments", lambda: fused_moments(X14), lambda: _moments14(X14),
+                             extra=", 4 positions")
+        _, _, _, ekernels = replay_profile(torch, lambda: _moments14(X14))
+        in_replay, in_eager = ring_kernels(kernels), ring_kernels(ekernels)
+        check(in_replay == in_eager == P14_RING,
+              f"phase 14 int8 kernels in the replay {in_replay}, eager {in_eager}, want {P14_RING}")
+    metrics["int8_moments_replay_kernels"] = in_replay
+    print(f"  int8_moments: the replay launches {in_replay} (eager {in_eager}) [{card}]")
+
+    # ---------------------------------------------------------------- 14.3
+    incidents.clear_incident_log()
+    with cq.collective_precision("int8_block"), guards.guard("degrade"):
+        fused_moments(X14)
+        _, syncs, graphs, _ = replay_profile(torch, lambda: fused_moments(X14))
+        check(syncs == 1 and graphs == 1 and not incidents.incident_log(),
+              f"phase 14 guarded healthy call: {syncs} syncs, {graphs} graph launches, "
+              f"{len(incidents.incident_log())} incidents")
+        bad = X14.larray.clone()
+        bad[3, 7] = float("nan")
+        Xbad = htt.array(bad, split=0, comm=comm4)
+        got = fused_moments(Xbad)
+    log = [(e.site, e.action) for e in incidents.incident_log()]
+    check(log == [("fuse:_moments14", "degraded"), ("fuse:_moments14", "unrecoverable")],
+          f"phase 14 NaN input incidents {log}")
+    for g, w in zip(got, _moments14(Xbad)):
+        check(bool(torch.equal(torch.isnan(g.larray), torch.isnan(w.larray))) and bitwise_equal(
+            torch.nan_to_num(g.larray), torch.nan_to_num(w.larray)), "phase 14 NaN input: not the exact re-run")
+    incidents.clear_incident_log()
+    limit = None
+    for seed in range(8):
+        gen.manual_seed(100 + seed)
+        Xs = htt.array(torch.randn((P14_ROWS, PAYLOAD), generator=gen, device=dev), split=0, comm=comm4)
+        exact_max = max(float(t.larray.abs().max()) for t in _moments14(Xs))
+        with cq.collective_precision("int8_block"):
+            quant_max = max(float(t.larray.abs().max()) for t in _moments14(Xs))
+        if quant_max > exact_max:
+            limit = (exact_max + quant_max) / 2
+            break
+    check(limit is not None, "phase 14: no seed separates the quantized moments from the exact ones")
+    with cq.collective_precision("int8_block"), guards.guard("degrade", overflow_limit=limit):
+        got = fused_moments(Xs)
+    log = [(e.site, e.action) for e in incidents.incident_log()]
+    check(log == [("fuse:_moments14", "degraded")], f"phase 14 over-limit incidents {log}")
+    for g, w in zip(got, _moments14(Xs)):
+        check(bitwise_equal(g.larray, w.larray), "phase 14 over-limit: not the exact re-run, bitwise")
+    incidents.clear_incident_log()
+    metrics["guarded_healthy_syncs"] = syncs
+    print(f"  guarded int8_moments: healthy {syncs} sync a call, no incident; NaN input: the exact re-run, "
+          f"incidents degraded + unrecoverable; over the limit {limit:.6g}: one incident, the exact result "
+          f"bitwise [{card}]")
+    del Xbad, bad, Xs
+
+    # ---------------------------------------------------------------- 14.4
+    q, k, v = attn_inputs((1, ATTN_S, ATTN_H, ATTN_D), torch.bfloat16, 14, dev)
+    fused_attention = htt.fuse(_attention14)
+    kernels, built = program("flash_attention_bf16_causal", lambda: fused_attention(q, k, v),
+                             lambda: _attention14(q, k, v), counter=lambda: fa.flash_attention.launches)
+    # the build launches B3 twice, the warm-up and the capture's recording:
+    # the graph holds one kernel node, which every replay launches once
+    check(built == 2, f"phase 14 B3 launches while building the fused program: {built}, want 2")
+    seen = sum(n for key, n in kernels.items() if "flash_kernel" in key)
+    # the profiler drops B3's kernels in the full run: the replay's kernel
+    # is read in a process of its own
+    proc = subprocess.run([sys.executable, "-c", _b3_replay_probe_code((1, ATTN_S, ATTN_H, ATTN_D), 3)],
+                          capture_output=True, text=True, timeout=300)
+    line = next((x for x in proc.stdout.splitlines() if x.startswith("B3REPLAY ")), None)
+    check(proc.returncode == 0 and line is not None,
+          f"phase 14 B3 replay probe: rc {proc.returncode}, {proc.stderr.strip()[-300:]}")
+    probe = json.loads(line.removeprefix("B3REPLAY "))
+    replays = probe["replays"]
+    check(probe["bitwise"] and all(g == 1 for _, g in replays) and max(n for n, _ in replays) == 1,
+          f"phase 14 B3 replay probe: {probe} (want bitwise, 1 graph launch and 1 flash kernel a replay)")
+    metrics["flash_kernels_captured"] = built - 1
+    metrics["flash_kernels_a_replay"] = max(n for n, _ in replays)
+    metrics["flash_kernels_profiled_in_full_run"] = seen
+    print(f"  B3 in a graph: {built - 1} kernel captured; alone, the profiler reads "
+          f"{[n for n, _ in replays]} flash kernels in 3 replays of one graph launch each (in the full run "
+          f"{seen}) [{card}]")
+
+    # ---------------------------------------------------------------- 14.5
+    calls = [fused for _, fused, _ in library]
+    with aot.capture_programs() as cap:
+        before = [c() for c in calls]
+    bundles = pickle.loads(pickle.dumps(aot.export_programs(cap)))
+    check(len(bundles) == len(calls), f"phase 14 exported {len(bundles)} bundles of {len(calls)}")
+    htt.fuse.clear_cache()
+    t0 = time.perf_counter()
+    installed = aot.install_programs(bundles, comm=comm1)
+    torch.cuda.synchronize()
+    install_ms = (time.perf_counter() - t0) * 1e3
+    check(installed == len(calls), f"phase 14 installed {installed} of {len(calls)}")
+    tel.reset()
+    tel.enable()
+    try:
+        after = [c() for c in calls]
+        counters = tel.snapshot()["counters"]
+    finally:
+        tel.disable()
+        tel.reset()
+    check(counters.get("fuse.cache.misses", 0) == 0 and counters.get("fuse.cache.hits") == len(calls),
+          f"phase 14 after install: {counters.get('fuse.cache.misses', 0)} misses")
+    for b, a in zip(before, after):
+        check(bitwise_equal(a.larray, b.larray), "phase 14 installed program != the pre-export one, bitwise")
+    other = [dict(bundles[0], fingerprint=bundles[0]["fingerprint"][:-1] + (("other",),))]
+    check(aot.install_programs(other, comm=comm1) == 0, "phase 14 a bundle of another fingerprint installed")
+    metrics["aot_install_ms"] = install_ms
+    print(f"  AOT: {installed} programs installed in {install_ms:.1f} ms, 0 misses on the next calls, "
+          f"bitwise; another fingerprint skipped [{card}]")
+
+    # ---------------------------------------------------------------- 14.6
+    try:
+        htt.fuse(_forces_value14)(X)
+        raised = False
+    except htt.FuseTraceError:
+        raised = True
+    check(raised, "phase 14: float() on a traced DNDarray did not raise FuseTraceError")
+
+    torch.cuda.synchronize()
+    launches = {f"blockquant_{f.__name__.removesuffix('_blocks')}": f.launches for f in counted}
+    launches["flash_attention"] = fa.flash_attention.launches
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -3249,6 +3690,15 @@ def run(dev, out_path=None) -> int:
             row["launches_by_phase"]["13"] = io_launches[row["name"]]
             row["launches"] += io_launches[row["name"]]
     print(f"phase 13: {io_metrics['phase13_s']:.1f} s; launches {io_launches}")
+    # ---------------------------------------------------------------- 14
+    t14 = time.perf_counter()
+    fuse_launches, fuse_metrics = phase_compiled(torch, htt, cq, dev, data, labels1, counted, card)
+    fuse_metrics["phase14_s"] = time.perf_counter() - t14
+    for row in kernel_rows:
+        if row["name"] in fuse_launches:
+            row.setdefault("launches_by_phase", {})["14"] = fuse_launches[row["name"]]
+            row["launches"] += fuse_launches[row["name"]]
+    print(f"phase 14: {fuse_metrics['phase14_s']:.1f} s; launches {fuse_launches} [{card}]")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -3268,6 +3718,7 @@ def run(dev, out_path=None) -> int:
         **grid_metrics,
         **base_metrics,
         **io_metrics,
+        **fuse_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

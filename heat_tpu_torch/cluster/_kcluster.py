@@ -17,6 +17,7 @@ import torch
 from ..core import factories, random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
+from ..core.fuse import fuse
 from ..core.sanitation import sanitize_predict_in
 
 __all__ = ["_KCluster"]
@@ -27,6 +28,15 @@ def _quadratic_cdist(x: DNDarray, y: DNDarray) -> DNDarray:
     from ..spatial import distance
 
     return distance.cdist(x, y, quadratic_expansion=True)
+
+
+def _assign_program(x: DNDarray, centers: DNDarray, metric: Callable) -> DNDarray:
+    return metric(x, centers).argmin(axis=1)
+
+
+#: the assignment as one fused program (:func:`heat_tpu_torch.fuse`): a
+#: module-level metric keys one cached program per operand signature
+_fused_assign = fuse(_assign_program)
 
 
 def _kmeanspp(arr: torch.Tensor, first: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
@@ -167,7 +177,8 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         )
 
     def _assign_to_cluster(self, x: DNDarray) -> DNDarray:
-        """Nearest-centroid labels: ``metric(x, centers).argmin(axis=1)``."""
+        """Nearest-centroid labels: ``metric(x, centers).argmin(axis=1)``,
+        one fused program."""
         if self._cluster_centers is None:
             raise RuntimeError(
                 f"{type(self).__name__} has no cluster centers — call fit() first"
@@ -175,7 +186,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         x = sanitize_predict_in(
             x, n_features=self._cluster_centers.shape[1], op=f"{type(self).__name__}.predict"
         )
-        return self._metric(x, self._cluster_centers).argmin(axis=1)
+        return _fused_assign(x, self._cluster_centers, self._metric)
 
     def _finalize_fit(self, x: DNDarray, centers: torch.Tensor, labels: torch.Tensor, n_iter) -> None:
         """Store the loop's results as DNDarrays: replicated centers,

@@ -31,6 +31,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..core._compile import jitted
 from ..core import types
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
@@ -45,6 +46,12 @@ def _assign(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     leading position axis)."""
     c2 = torch.sum(c * c, dim=1)
     return torch.argmin(c2 - 2.0 * torch.matmul(a, c.T), dim=-1)
+
+
+def _labels_inertia(arr: torch.Tensor, centers: torch.Tensor):
+    """The final labels and the inertia of the fitted centers."""
+    labels = _assign(arr, centers)
+    return labels, torch.sum((arr - centers[labels]) ** 2)
 
 
 def _one_hot(labels: torch.Tensor, k: int, dtype: torch.dtype) -> torch.Tensor:
@@ -208,7 +215,8 @@ class KMeans(_KCluster):
             stop = ckpt.stop(it0, self.max_iter)
             with _elastic.dispatch_guard("kmeans.seg_q" if use_q else "kmeans.seg", comm):
                 if use_q:
-                    carry = KMeans._fit_segment_q(blocks, tol, stop, carry, mode=mode)
+                    seg = jitted(("kmeans.seg_q", comm, mode, n, f, k), lambda: KMeans._fit_segment_q)
+                    carry = seg(blocks, tol, stop, carry, mode=mode)
                 else:
                     carry = KMeans._fit_segment(arr, tol, stop, carry)
             it = carry[0]
@@ -227,8 +235,11 @@ class KMeans(_KCluster):
             ckpt.tick(it, snap)
 
         centers = carry[1]
-        labels = _assign(arr, centers)
-        self._inertia = torch.sum((arr - centers[labels]) ** 2)
+        if use_q:
+            labels, self._inertia = jitted(("kmeans.fin_q", comm, n, f, k), lambda: _labels_inertia)(
+                arr, centers)
+        else:
+            labels, self._inertia = _labels_inertia(arr, centers)
         self._finalize_fit(x, centers, labels, carry[0])
         return self
 
@@ -285,7 +296,8 @@ class KMeans(_KCluster):
             stop = ckpt.stop(it0, total)
             with _elastic.dispatch_guard("kmeans.mb", comm):
                 for (chunk,), nv in _stream.stream_chunks(src, mb, it0, stop, comm=comm, device=device):
-                    carry = _kmeans_mb_step(chunk, nv, *carry, mb=mb, k=k)
+                    step = jitted(("kmeans.mb_seg", comm, mb, f, k), lambda: _kmeans_mb_step)
+                    carry = step(chunk, nv, *carry, mb=mb, k=k)
             it = carry[0]
             if it >= total or it < stop:
                 break

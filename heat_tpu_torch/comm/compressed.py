@@ -58,6 +58,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core._compile import jitted, register_key_context
+from ..core._tracing import in_trace
 from ..core.communication import sanitize_comm
 from ..resilience import faults as _faults
 from ..resilience import guards as _guards
@@ -144,6 +146,15 @@ def set_collective_threshold(nbytes: int) -> None:
 def get_collective_threshold() -> int:
     """Current ``"auto"``-mode payload-size threshold in bytes."""
     return _AUTO_THRESHOLD
+
+
+@register_key_context
+def _policy_token() -> Tuple:
+    """The policy's contribution to every program cache key
+    (:func:`heat_tpu_torch.core._compile.register_key_context`): a policy
+    flip keys fresh ``jitted`` entries and fused programs instead of
+    replaying ones traced under another wire format."""
+    return ("commq", _PRECISION, _AUTO_THRESHOLD)
 
 
 def _dtype_name(dtype) -> str:
@@ -626,18 +637,22 @@ def allreduce_q(
     # the fault seams and the guard sit at the host boundary, around the
     # ring's kernels; each costs one predicate while nothing is armed
     payload = _faults.comm_input("allreduce_q", array) if _faults.any_active() else array
+    ring = jitted(("commq.allreduce", comm, mode, blk, tuple(array.shape), array.dtype, has_err),
+                  lambda: _allreduce_ring)
     if _tel.enabled:
         _account_wire("allreduce", mode, math.prod(array.shape[1:]), p)
         with _tel.span("commq:allreduce", mode=mode or "f32", mesh=p):
-            out = timed_dispatch("allreduce_q", False, lambda: _allreduce_ring(payload, error, p, mode, blk))
+            out = timed_dispatch("allreduce_q", False, lambda: ring(payload, error, p, mode, blk))
     else:
-        out = _allreduce_ring(payload, error, p, mode, blk)
+        out = ring(payload, error, p, mode, blk)
     if _faults.any_active():
         if has_err:
             out = (_faults.comm_output("allreduce_q", out[0]), out[1])
         else:
             out = _faults.comm_output("allreduce_q", out)
-    if mode is not None and _guards.active():
+    # inside a trace the guard is the fused program's own output (one
+    # read after the replay): a scalar read here cannot be captured
+    if mode is not None and _guards.active() and not in_trace():
         if not _guards.is_healthy(*(out if has_err else (out,))):
             def _exact():
                 # bit-identical to what set_collective_precision("f32")
@@ -679,15 +694,17 @@ def allgather_q(
     axis = int(axis) % array.ndim
     blk = int(block or BLOCK)
     payload = _faults.comm_input("allgather_q", array) if _faults.any_active() else array
+    ring = jitted(("commq.allgather", comm, mode, blk, axis, tuple(array.shape), array.dtype),
+                  lambda: _allgather_ring)
     if _tel.enabled:
         _account_wire("allgather", mode, array.numel() // p, p)
         with _tel.span("commq:allgather", mode=mode, mesh=p):
-            out = timed_dispatch("allgather_q", False, lambda: _allgather_ring(payload, axis, p, mode, blk))
+            out = timed_dispatch("allgather_q", False, lambda: ring(payload, axis, p, mode, blk))
     else:
-        out = _allgather_ring(payload, axis, p, mode, blk)
+        out = ring(payload, axis, p, mode, blk)
     if _faults.any_active():
         out = _faults.comm_output("allgather_q", out)
-    if _guards.active() and not _guards.is_healthy(out):
+    if _guards.active() and not in_trace() and not _guards.is_healthy(out):
         # the exact all-gather is precisely the "f32" policy's path
         return _guards.handle(
             "allgather_q", out,
@@ -748,6 +765,13 @@ def reduce_q(
     the split axis of the padded buffer: exact local partials (pad rows
     are zeros), combined on the quantized ring; the result is replicated."""
     blk = int(block or BLOCK)
+    key = ("commq.reduce", comm, mode, blk, split, axes, keepdims, mean_n, tuple(buffer.shape),
+           buffer.dtype, out_dtype)
+    return jitted(key, lambda: _reduce_q)(buffer, comm, split, axes, keepdims, mode, mean_n,
+                                           out_dtype, blk)
+
+
+def _reduce_q(buffer, comm, split, axes, keepdims, mode, mean_n, out_dtype, blk) -> torch.Tensor:
     part = _partials(comm, buffer, split, axes, keepdims, lambda b: b)
     red = ring_allreduce_q(part, size=comm.size, mode=mode, block=blk)
     if mean_n is not None:
@@ -780,16 +804,25 @@ def moments_q(
 
     with ``c_local`` the position's count of real (un-padded) elements, so
     the ring payload is ``~ var * n`` rather than ``~ mu^2 * n``."""
-    p = comm.size
     blk = int(block or BLOCK)
+    key = ("commq.moments", comm, mode, blk, split, axes, keepdims, true_n, split_valid, ddof,
+           finalize, tuple(buffer.shape), buffer.dtype, out_dtype)
+    return jitted(key, lambda: _moments_q)(buffer, comm, split, axes, keepdims, mode, true_n,
+                                            split_valid, ddof, finalize, out_dtype, blk)
+
+
+def _moments_q(buffer, comm, split, axes, keepdims, mode, true_n, split_valid, ddof, finalize,
+               out_dtype, blk) -> torch.Tensor:
+    p = comm.size
     other = true_n // max(int(split_valid), 1)
     s1 = _partials(comm, buffer, split, axes, keepdims, lambda b: b)
     s2 = _partials(comm, buffer, split, axes, keepdims, lambda b: b * b)
     mu = s1.sum(dim=0) / float(true_n)
-    counts = torch.tensor(
-        [c * other for c in comm.valid_counts(split_valid)],
-        dtype=torch.float32, device=buffer.device,
-    ).reshape((p,) + (1,) * (s1.ndim - 1))
+    # each position's count of real elements, made on the device (a host
+    # list copied in could not be captured in a CUDA graph)
+    c = comm.shard_width(split_valid)
+    rows = torch.clamp(split_valid - c * torch.arange(p, device=buffer.device), 0, c)
+    counts = (rows * other).to(torch.float32).reshape((p,) + (1,) * (s1.ndim - 1))
     ssd_local = s2 - 2.0 * mu * s1 + counts * mu * mu
     ssd = ring_allreduce_q(ssd_local, size=p, mode=mode, block=blk)
     var = torch.clamp_min(ssd, 0.0) / float(true_n - ddof)
@@ -813,8 +846,14 @@ def class_moments_q(arr: torch.Tensor, member: torch.Tensor, *, comm, mode: str,
     in float32, so the payload is ``~ var_k n_k`` rather than ``~ mu_k^2
     n_k``.  Returns replicated float32 ``(k,)`` counts, ``(k, f)`` sums
     and ``(k, f)`` ssd (clamped at 0)."""
-    p = comm.size
     blk = int(block or BLOCK)
+    key = ("commq.class_moments", comm, mode, blk, tuple(arr.shape), int(member.shape[1]),
+           arr.dtype)
+    return jitted(key, lambda: _class_moments_q)(arr, member, comm, mode, blk)
+
+
+def _class_moments_q(arr, member, comm, mode, blk):
+    p = comm.size
     n, f = int(arr.shape[0]), int(arr.shape[1])
     k = int(member.shape[1])
     a = arr.to(torch.float32).reshape(p, n // p, f)

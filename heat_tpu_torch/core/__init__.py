@@ -1,5 +1,6 @@
-"""Core: types, devices, the communicator, DNDarray, factories, ops and
-linear algebra (the flat namespace of ``heat_tpu/core/__init__.py``)."""
+"""Core: types, devices, the communicator, DNDarray, ``fuse``, factories,
+ops and linear algebra (the flat namespace of
+``heat_tpu/core/__init__.py``)."""
 
 from .communication import *  # noqa: F401,F403
 from .devices import cpu, get_device, gpu, sanitize_device, use_device
@@ -11,6 +12,8 @@ from .memory import *  # noqa: F401,F403
 from . import sanitation
 from .sanitation import *  # noqa: F401,F403
 from .dndarray import *  # noqa: F401,F403
+from . import fuse as _fuse_module
+from .fuse import *  # noqa: F401,F403
 from . import factories
 from .factories import *  # noqa: F401,F403
 from . import arithmetics

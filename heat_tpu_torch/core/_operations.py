@@ -35,9 +35,46 @@ import numpy as np
 import torch
 
 from . import sanitation, types
+from ..telemetry import _core as _tel
+from ._compile import cache_stable, counted, jitted
+from ._tracing import record_dispatch
 from .dndarray import DNDarray
 
 __all__ = ["__binary_op", "__local_op", "__reduce_op", "__cum_op"]
+
+
+def _freeze(statics: tuple):
+    """Hashable view of an op's static parameters (a kwargs dict among them
+    as its sorted items), or None if one is unhashable or an array (which
+    hashes by identity: a key per call)."""
+    out = []
+    for v in statics:
+        if isinstance(v, dict):
+            v = tuple(sorted(v.items()))
+            if any(isinstance(w, (torch.Tensor, DNDarray, np.ndarray)) for _, w in v):
+                return None
+        out.append(v)
+    out = tuple(out)
+    try:
+        hash(out)
+    except TypeError:
+        return None
+    return out
+
+
+def _run(site: str, operation: Callable, statics: tuple, fn: Callable, *args):
+    """``fn(*args)`` as the op's one dispatch.  With telemetry on it runs
+    as the :func:`~._compile.jitted` entry keyed on ``(site, operation,
+    statics)`` when ``operation`` is call-stable and the statics hashable,
+    else keyless (a per-call identity would only grow the seen keys); with
+    telemetry off nothing is keyed."""
+    if not _tel.enabled:
+        record_dispatch()
+        return fn(*args)
+    frozen = _freeze(statics)
+    if frozen is not None and cache_stable(operation):
+        return jitted((site, operation, frozen), lambda: fn)(*args)
+    return counted(fn)(*args)
 
 
 def _axes(ndim: int, axis) -> tuple:
@@ -132,11 +169,13 @@ def __binary_op(
             if isinstance(value, bool) and target != torch.bool:
                 value = int(value)
             value = types._cast_scalar(value, target)
-            # torch takes a scalar as the second operand only
-            return torch.tensor(value, dtype=target, device=dev) if first else value
+            # torch takes a scalar as the second operand only; the first is
+            # filled on the device (a host copy could not be captured)
+            return torch.full((), value, dtype=target, device=dev) if first else value
         return types._cast(torch.as_tensor(np.asarray(t), device=dev), target)
 
-    result = operation(operand(t1, True), operand(t2, False), **fn_kwargs)
+    result = _run("binary", operation, (fn_kwargs,), lambda x, y: operation(x, y, **fn_kwargs),
+                  operand(t1, True), operand(t2, False))
     split = anchor.split
     if split is not None:
         split = split + (result.ndim - anchor.ndim)
@@ -162,10 +201,11 @@ def __local_op(
     result keeps ``x``'s splits tuple, or with ``keep_grid=False`` (maps
     the reference computes another way) its ``split``."""
     sanitation.sanitize_in(x)
-    arr = x.larray
+    cast = None
     if not no_cast and types.heat_type_is_exact(x.dtype):
-        arr = arr.to(torch.float64 if x.dtype is types.int64 else torch.float32)
-    result = operation(arr, **kwargs)
+        cast = torch.float64 if x.dtype is types.int64 else torch.float32
+    result = _run("local", operation, (cast, kwargs),
+                  lambda a: operation(a.to(cast) if cast else a, **kwargs), x.larray)
     wrapped = DNDarray(
         result, tuple(result.shape), types.canonical_heat_type(result.dtype),
         (x._layout if keep_grid else x.split) if result.ndim else None, x.device, x.comm,
@@ -207,9 +247,11 @@ def __reduce_op(
                 mode=mode, out_dtype=cast or x._buffer.dtype,
             )
     if result is None:
-        result = reduction(x.larray, axes, keepdims)
-        if cast is not None:
-            result = result.to(cast)
+        def f(a):
+            r = reduction(a, axes, keepdims)
+            return r.to(cast) if cast is not None else r
+
+        result = _run("reduce", reduction, (axes, keepdims, cast), f, x.larray)
     if result.ndim == 0:
         split = None
     wrapped = DNDarray(
@@ -258,15 +300,18 @@ def __cum_op(
     from ..parallel.primitives import local_scan, prefix_scan
 
     scan_op = {torch.cumsum: "sum", torch.cumprod: "prod"}[operation]
-    arr = x.larray
-    if axis == x.split and x.comm.size > 1:
-        result = prefix_scan(arr, scan_op, comm=x.comm, axis=axis)
-    else:
-        result = local_scan(arr, scan_op, axis)
-    if arr.dtype != torch.bool:
-        result = result.to(arr.dtype)
-    if cast is not None:
-        result = result.to(cast)
+    comm = x.comm if axis == x.split and x.comm.size > 1 else None
+
+    def f(arr):
+        if comm is not None:
+            r = prefix_scan(arr, scan_op, comm=comm, axis=axis)
+        else:
+            r = local_scan(arr, scan_op, axis)
+        if arr.dtype != torch.bool:
+            r = r.to(arr.dtype)
+        return r.to(cast) if cast is not None else r
+
+    result = _run("cum", operation, (axis, cast, comm), f, x.larray)
     wrapped = DNDarray(
         result, x.gshape, types.canonical_heat_type(result.dtype), x.split, x.device, x.comm,
     )

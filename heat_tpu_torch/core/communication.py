@@ -39,6 +39,7 @@ import torch
 
 from ..telemetry import _core as _tel
 from . import devices
+from ._tracing import in_trace, record_dispatch
 
 __all__ = [
     "Communication",
@@ -427,11 +428,21 @@ class TorchCommunication(Communication):
         """The at-rest form of a TRUE-shape global tensor laid out at
         ``split``: the split axis zero-padded to its canonical length.  A
         splits tuple, or any layout on a grid, pads every sharded
-        dimension over its mesh axis (:meth:`pad_to_shards` ``splits=``)."""
+        dimension over its mesh axis (:meth:`pad_to_shards` ``splits=``).
+
+        This is the layout commit: outside a trace, on several positions,
+        it counts one dispatch (the reference's reshard,
+        ``communication.py:1105``); inside an ``htt.fuse`` trace it counts
+        nothing and inspects nothing on the host."""
         if split is None or array.ndim == 0:
             return array
-        if _tel.enabled and self.size > 1:
-            return self._reshard(lambda: self._pad_to(array, split))
+        if in_trace():
+            # part of the enclosing program: no launch of its own to count
+            return self._pad_to(array, split)
+        if self.size > 1:
+            record_dispatch()
+            if _tel.enabled:
+                return self._reshard(lambda: self._pad_to(array, split))
         return self._pad_to(array, split)
 
     def _pad_to(self, array: torch.Tensor, split) -> torch.Tensor:

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from . import types
+from ._compile import jitted
+from ._tracing import require_concrete
 from .communication import TorchCommunication
 from .devices import Device
 
@@ -78,6 +80,20 @@ def _basic_key(key, ndim: int) -> list:
     if not any(k is Ellipsis for k in keyt):
         expanded += fill
     return expanded
+
+
+def _zeropad(arr: torch.Tensor, comm: TorchCommunication, splits) -> torch.Tensor:
+    return comm.pad_to_shards(arr, splits=splits)
+
+
+def _halo_concat(prev: torch.Tensor, buf: torch.Tensor, nxt: torch.Tensor, split: int, p: int,
+                 h: int) -> torch.Tensor:
+    """Each position's block between its neighbour strips, along ``split``."""
+    blocks = buf.movedim(split, 0)
+    blocks = blocks.reshape((p, -1) + tuple(blocks.shape[1:]))
+    strip = lambda t: t.movedim(split, 0).reshape((p, h) + tuple(blocks.shape[2:]))  # noqa: E731
+    out = torch.cat([strip(prev), blocks, strip(nxt)], dim=1)
+    return out.reshape((-1,) + tuple(out.shape[2:])).movedim(0, split)
 
 
 class LocalIndex:
@@ -250,7 +266,9 @@ class DNDarray:
         with zeros (one copy), whatever the buffer's pads hold."""
         if self.__array.shape == torch.Size(self.__gshape):
             return self.__array
-        return self.__comm.pad_to_shards(self.larray, splits=self.__splits)
+        comm, splits = self.__comm, self.__splits
+        key = ("dnd.zeropad", comm, splits, tuple(self.__array.shape))
+        return jitted(key, lambda: _zeropad)(self.larray, comm, splits)
 
     @property
     def padshape(self) -> Tuple[int, ...]:
@@ -382,6 +400,7 @@ class DNDarray:
     def numpy(self) -> np.ndarray:
         """The global array on the host (bfloat16 comes back as float32,
         numpy having no bfloat16)."""
+        require_concrete(".numpy()")
         t = self.larray.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -390,21 +409,26 @@ class DNDarray:
     def __array__(self, dtype=None, copy=None):
         """The global array on the host, for numpy (a numpy operand on the
         left of a comparison computes through this, as in the reference)."""
+        require_concrete("np.asarray()")
         arr = self.numpy()
         return arr.astype(dtype) if dtype is not None else arr
 
     def item(self):
+        require_concrete(".item()")
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
         return self.larray.reshape(()).item()
 
     def __bool__(self) -> bool:
+        require_concrete("bool()")
         return bool(self.item())
 
     def __float__(self) -> float:
+        require_concrete("float()")
         return float(self.item())
 
     def __int__(self) -> int:
+        require_concrete("int()")
         return int(self.item())
 
     def __len__(self) -> int:
@@ -413,6 +437,7 @@ class DNDarray:
         return self.__gshape[0]
 
     def __complex__(self) -> complex:
+        require_concrete("complex()")
         return complex(self.item())
 
     def __iter__(self):
@@ -420,18 +445,42 @@ class DNDarray:
             yield self[i]
 
     def __repr__(self) -> str:
+        require_concrete("repr()")
         from . import printing
 
         return printing.__str__(self)
 
     def __str__(self) -> str:
+        require_concrete("print()/str()")
         from . import printing
 
         return printing.__str__(self)
 
     def tolist(self, keepsplit: bool = False) -> list:
         """Nested Python lists of the global values."""
+        require_concrete(".tolist()")
         return self.numpy().tolist()
+
+    def save(self, path: str, *args, **kwargs) -> None:
+        """Save to HDF5, NetCDF or CSV by file extension (:func:`~.io.save`)."""
+        require_concrete(".save()")
+        from . import io
+
+        io.save(self, path, *args, **kwargs)
+
+    def save_hdf5(self, path: str, dataset: str, mode: str = "w", **kwargs) -> None:
+        """Save to an HDF5 dataset (:func:`~.io.save_hdf5`)."""
+        require_concrete(".save_hdf5()")
+        from . import io
+
+        io.save_hdf5(self, path, dataset, mode, **kwargs)
+
+    def save_netcdf(self, path: str, variable: str, mode: str = "w", **kwargs) -> None:
+        """Save to a NetCDF variable (:func:`~.io.save_netcdf`)."""
+        require_concrete(".save_netcdf()")
+        from . import io
+
+        io.save_netcdf(self, path, variable, mode, **kwargs)
 
     def copy(self) -> "DNDarray":
         """An independent copy."""
@@ -802,12 +851,8 @@ class DNDarray:
         h = self.__halo_size
         if self.__split is None or not h:
             return self.larray
-        split, p = self.__split, self.__comm.size
-        blocks = self.__array.movedim(split, 0)
-        blocks = blocks.reshape((p, -1) + tuple(blocks.shape[1:]))
-        strip = lambda t: t.movedim(split, 0).reshape((p, h) + tuple(blocks.shape[2:]))  # noqa: E731
-        out = torch.cat([strip(self.__halo_prev), blocks, strip(self.__halo_next)], dim=1)
-        return out.reshape((-1,) + tuple(out.shape[2:])).movedim(0, split)
+        fn = jitted(("dnd.halo_concat", self.__comm), lambda: _halo_concat)
+        return fn(self.__halo_prev, self.__array, self.__halo_next, self.__split, self.__comm.size, h)
 
     @property
     def T(self) -> "DNDarray":
@@ -817,6 +862,14 @@ class DNDarray:
     def resplit(self, axis=None) -> "DNDarray":
         """A copy laid out at ``axis`` (``None``: replicated; a splits
         tuple on a grid)."""
+        try:
+            same = self.__comm.normalize_splits(self.ndim, axis) == self.__splits
+        except (IndexError, ValueError):
+            same = False  # the constructor below reports the bad axis
+        if same:
+            # the same layout: a copy, no layout commit
+            return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, self.__splits,
+                            self.__device, self.__comm)
         arr = self.__comm.resplit(self.larray, axis)
         if arr.untyped_storage().data_ptr() == self.__array.untyped_storage().data_ptr():
             arr = arr.contiguous().clone()

@@ -28,7 +28,9 @@ from typing import List, Optional
 import torch
 
 from .. import types
+from .._compile import jitted
 from .._operations import _out
+from .._tracing import record_dispatch
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_axis, sanitize_in
 
@@ -169,9 +171,12 @@ def matmul(
                 )
     promoted = types.promote_types(a.dtype, b.dtype)
     dtype = promoted.torch_type()
+    grid = _grid_layout(a, b)
+    if grid:
+        record_dispatch()  # the grid SUMMA is one program (reference basics.py:422)
     with _matmul_precision(precision):
         garr = _mm(a.larray.to(dtype), b.larray.to(dtype))
-    split = (0, 1) if _grid_layout(a, b) else _result_split_matmul(a, b, garr.ndim)
+    split = (0, 1) if grid else _result_split_matmul(a, b, garr.ndim)
     return _out(out, DNDarray(garr, tuple(garr.shape), promoted, split, a.device, a.comm))
 
 
@@ -200,13 +205,18 @@ def _scalar(a: DNDarray, res: torch.Tensor) -> DNDarray:
     return DNDarray(res, (), types.canonical_heat_type(res.dtype), None, a.device, a.comm)
 
 
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(x * x))
+
+
 def norm(a: DNDarray) -> DNDarray:
     """The 2-norm of the whole array, ``sqrt(sum(a * a))``, as a 0-d
     DNDarray (``float()`` of it is the caller's host sync), in every
     layout: the sum runs over the true view, so no pad enters it."""
     sanitize_in(a)
     x = _inexact(a)
-    return _scalar(a, torch.sqrt(torch.sum(x * x)))
+    key = ("linalg.norm", a.comm, a.splits, tuple(x.shape), str(x.dtype))
+    return _scalar(a, jitted(key, lambda: _norm)(x))
 
 
 def vector_norm(a: DNDarray, ord=2) -> DNDarray:

@@ -37,6 +37,7 @@ from .. import types
 from ...comm._costs import grid_panel_bounds
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
+from .._compile import jitted
 from .basics import _matmul_precision
 
 __all__ = ["QR", "qr"]
@@ -199,7 +200,9 @@ def _grid_qr(a: DNDarray, dtype, tiles_per_proc: int, calc_q: bool) -> QR:
         )
     buf = a._zeroed_buffer().to(dtype.torch_type())
     with _matmul_precision():
-        q_blk, r_blk = _caqr_blocks(comm.blocks(buf, (0, 1)), bounds, vcs)
+        fn = jitted(("qr.grid", comm, bounds, vcs, tuple(buf.shape), str(buf.dtype)),
+                    lambda: _caqr_blocks)
+        q_blk, r_blk = fn(comm.blocks(buf, (0, 1)), bounds, vcs)
     R = DNDarray(r_blk[:, :n].transpose(0, 1).reshape(n, c * nloc), (n, n), dtype, (None, 1), a.device, comm)
     if not calc_q:
         return QR(None, R)
@@ -242,9 +245,9 @@ def qr(a: DNDarray, tiles_per_proc: int = 1, calc_q: bool = True, overwrite_a: b
     arr = a.larray.to(dtype.torch_type())
     with _matmul_precision():
         if a.split == 0 and m >= n:
-            q, r = _tsqr(a, arr)
+            q, r = jitted(("qr.tsqr", comm), lambda: _tsqr)(a, arr)
         elif a.split == 1 and m >= n and a.comm.size > 1:
-            q, r = _cgs2(a, arr, int(tiles_per_proc))
+            q, r = jitted(("qr.cgs2", comm), lambda: _cgs2)(a, arr, int(tiles_per_proc))
         else:
             q, r = torch.linalg.qr(arr)
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import types
+from .._compile import jitted
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
 from .basics import _matmul_precision
@@ -57,11 +58,19 @@ def _small_svd(r: torch.Tensor, compute_uv: bool):
     return tuple(t.to(r.dtype) for t in torch.linalg.svd(r.double(), full_matrices=False))
 
 
-def _svd_tall(a: DNDarray, dtype, compute_uv: bool):
-    """The QR-first SVD of an ``m >= n`` matrix."""
+def _svd_pipeline(a: DNDarray, osplit, dtype, compute_uv: bool):
+    """The QR-first SVD of an ``m >= n`` matrix, U laid out at ``osplit``
+    (0 or replicated).
+
+    Module-level, in the reference's shape, so that ``htt.fuse`` could run
+    it as one program; :func:`svd` calls it unfused on every device, by a
+    fixed choice: cuSOLVER's Jacobi SVD under ``torch.linalg.svd``
+    (``gesvdj``, on R in float64) synchronizes with the host inside and
+    fails under a CUDA graph capture (``CUSOLVER_STATUS_EXECUTION_FAILED``;
+    ``chip_smoke.py`` phase 14 probes the capture of this pipeline on every
+    run and requires it to raise)."""
     comm, device = a.comm, a.device
     m, n = a.shape
-    osplit = a.split
     if a.split == 0 and comm.size > 1 and comm.shard_width(m) < n and m * n <= _SMALL_RESPLIT_MAX:
         # shards wider than tall would send TSQR to its gather warning on
         # every call: a small matrix is replicated here, once and silently;
@@ -242,7 +251,9 @@ def _grid_svd(a: DNDarray, dtype, compute_uv: bool):
         return res if not compute_uv else SVD(res.V, res.S, res.U)
     if a.splits == (1, 0):
         a = a.resplit((0, 1))
-    u, s, v, _ = _grid_svd_parts(a, dtype, compute_uv)
+    fn = jitted(("svd.grid", comm, tuple(a._buffer.shape), str(a._buffer.dtype)),
+                lambda: _grid_svd_parts)
+    u, s, v, _ = fn(a, dtype, compute_uv)
     S = DNDarray(s, (n,), dtype, None, device, comm)
     if not compute_uv:
         return S
@@ -269,4 +280,4 @@ def svd(a: DNDarray, full_matrices: bool = False, compute_uv: bool = True):
     if m < n:
         res = svd(a.T, compute_uv=compute_uv)
         return res if not compute_uv else SVD(res.V, res.S, res.U)
-    return _svd_tall(a, dtype, compute_uv)
+    return _svd_pipeline(a, a.split, dtype, compute_uv)

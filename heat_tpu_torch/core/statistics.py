@@ -21,7 +21,9 @@ import builtins
 import numpy as np
 
 from . import _operations, factories, types
+from ._compile import jitted
 from .dndarray import DNDarray
+from .fuse import fuse
 from .sanitation import merge_keepdims, sanitize_axis, sanitize_in
 
 __all__ = [
@@ -93,10 +95,13 @@ def mean(x, axis=None, keepdims=None, keepdim=None) -> DNDarray:
     axis = sanitize_axis(x.shape, axis)
     res = _compressed_moment(x, axis, keepdims, kind="mean")
     if res is None:
-        a = x.larray
-        if types.heat_type_is_exact(x.dtype):
-            a = a.to(torch.float32)
-        res = torch.mean(a, dim=_operations._axes(x.ndim, axis), keepdim=keepdims)
+        cast = torch.float32 if types.heat_type_is_exact(x.dtype) else None
+        dims = _operations._axes(x.ndim, axis)
+        fn = jitted(
+            ("stat.mean", dims, cast, keepdims),
+            lambda: lambda a: torch.mean(a.to(cast) if cast else a, dim=dims, keepdim=keepdims),
+        )
+        res = fn(x.larray)
     return _wrap_reduced(x, res, axis, keepdims)
 
 
@@ -112,12 +117,17 @@ def _moment2(x, axis, ddof, kwargs, kind: str) -> DNDarray:
         raise TypeError(f"unexpected keyword arguments: {sorted(kwargs)}")
     res = _compressed_moment(x, axis, keepdims, kind=kind, ddof=ddof)
     if res is None:
-        a = x.larray
-        if types.heat_type_is_exact(x.dtype):
-            a = a.to(torch.float32)
-        res = torch.var(a, dim=_operations._axes(x.ndim, axis), correction=ddof, keepdim=keepdims)
-        if kind == "std":
-            res = torch.sqrt(res)
+        cast = torch.float32 if types.heat_type_is_exact(x.dtype) else None
+        dims = _operations._axes(x.ndim, axis)
+
+        def make():
+            def f(a):
+                r = torch.var(a.to(cast) if cast else a, dim=dims, correction=ddof, keepdim=keepdims)
+                return torch.sqrt(r) if kind == "std" else r
+
+            return f
+
+        res = jitted(("stat.moment2", kind, dims, ddof, cast, keepdims), make)(x.larray)
     return _wrap_reduced(x, res, axis, keepdims)
 
 
@@ -376,11 +386,7 @@ def _moments(x: DNDarray, axis, orders):
     return n, [torch.mean(diff ** k, dim=dims) for k in orders]
 
 
-def kurtosis(x: DNDarray, axis=None, unbiased: bool = True, Fischer: bool = True) -> DNDarray:
-    """Fourth standardized moment (minus 3 with ``Fischer``), with the
-    unbiased correction by default."""
-    sanitize_in(x)
-    axis = sanitize_axis(x.shape, axis)
+def _kurtosis_program(x: DNDarray, axis, unbiased: bool, Fischer: bool) -> DNDarray:
     n, (m2, m4) = _moments(x, axis, (2, 4))
     g2 = m4 / torch.where(m2 == 0, torch.ones_like(m2), m2 ** 2)
     if unbiased:
@@ -388,15 +394,35 @@ def kurtosis(x: DNDarray, axis=None, unbiased: bool = True, Fischer: bool = True
     return _wrap_reduced(x, g2 - 3 if Fischer else g2, axis)
 
 
-def skew(x: DNDarray, axis=None, unbiased: bool = True) -> DNDarray:
-    """Third standardized moment, with the unbiased correction by default."""
+_fused_kurtosis = fuse(_kurtosis_program)
+
+
+def kurtosis(x: DNDarray, axis=None, unbiased: bool = True, Fischer: bool = True) -> DNDarray:
+    """Fourth standardized moment (minus 3 with ``Fischer``), with the
+    unbiased correction by default: one fused program
+    (:func:`heat_tpu_torch.fuse`) per (shape, axis, flags) signature."""
     sanitize_in(x)
     axis = sanitize_axis(x.shape, axis)
+    return _fused_kurtosis(x, axis, unbiased, Fischer)
+
+
+def _skew_program(x: DNDarray, axis, unbiased: bool) -> DNDarray:
     n, (m2, m3) = _moments(x, axis, (2, 3))
     g1 = m3 / torch.where(m2 == 0, torch.ones_like(m2), m2 ** 1.5)
     if unbiased and n > 2:
         g1 = g1 * math.sqrt(n * (n - 1.0)) / (n - 2.0)
     return _wrap_reduced(x, g1, axis)
+
+
+_fused_skew = fuse(_skew_program)
+
+
+def skew(x: DNDarray, axis=None, unbiased: bool = True) -> DNDarray:
+    """Third standardized moment, with the unbiased correction by
+    default: one fused program per (shape, axis, flags) signature."""
+    sanitize_in(x)
+    axis = sanitize_axis(x.shape, axis)
+    return _fused_skew(x, axis, unbiased)
 
 
 _METHODS = ("linear", "lower", "higher", "midpoint", "nearest")

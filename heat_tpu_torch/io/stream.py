@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core import factories
+from ..core._compile import register_key_context
 from ..core import io as _cio
 from ..core import types
 from ..core.dndarray import DNDarray
@@ -105,6 +106,16 @@ def prefetch(mode: str):
         yield
     finally:
         set_prefetch(prev)
+
+
+@register_key_context
+def _prefetch_token() -> Tuple:
+    """The prefetch policy's contribution to every program cache key:
+    the chunk programs do not depend on the schedule, but keying on the
+    policy keeps each arm's first-call telemetry attributable to its own
+    setting.  The device check inside :func:`prefetch_enabled` is not
+    part of the token."""
+    return ("prefetch", _PREFETCH)
 
 
 def prefetch_enabled(device: Optional[torch.device] = None) -> bool:

@@ -23,9 +23,51 @@ import torch.nn.functional as F
 from ..core import types
 from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray
+from ..core.fuse import fuse
 from ..core.sanitation import sanitize_in, sanitize_predict_in
 
 __all__ = ["GaussianNB"]
+
+
+def _joint_log_likelihood(x: DNDarray, theta, sigma, prior) -> torch.Tensor:
+    """``log P(c) + sum_f log N(x_f | theta_cf, sigma_cf)`` per row and
+    class, in float64."""
+    arr = x.larray.to(torch.float64)
+    logprior = torch.log(torch.clamp_min(prior, 1e-300))
+    n_ij = -0.5 * torch.sum(torch.log(2.0 * math.pi * sigma), dim=1)
+    diff = arr[:, None, :] - theta[None, :, :]
+    ll = n_ij[None, :] - 0.5 * torch.sum(diff**2 / sigma[None, :, :], dim=2)
+    return logprior[None, :] + ll
+
+
+def _rows(x: DNDarray, garr: torch.Tensor) -> DNDarray:
+    split = x.split if x.split == 0 else None
+    return DNDarray(garr, tuple(garr.shape), types.canonical_heat_type(garr.dtype), split,
+                    x.device, x.comm)
+
+
+def _nb_predict_program(x: DNDarray, theta, sigma, prior, classes) -> DNDarray:
+    jll = _joint_log_likelihood(x, theta, sigma, prior)
+    return _rows(x, classes[torch.argmax(jll, dim=1)])
+
+
+def _nb_log_proba_program(x: DNDarray, theta, sigma, prior) -> DNDarray:
+    jll = _joint_log_likelihood(x, theta, sigma, prior)
+    return _rows(x, (jll - torch.logsumexp(jll, dim=1, keepdim=True)).to(torch.float32))
+
+
+def _nb_proba_program(x: DNDarray, theta, sigma, prior) -> DNDarray:
+    from ..core import exponential
+
+    return exponential.exp(_nb_log_proba_program(x, theta, sigma, prior))
+
+
+#: the three predicts as fused programs (:func:`heat_tpu_torch.fuse`);
+#: ``theta``, ``sigma``, ``prior`` and ``classes`` are host operands,
+#: moved to the device before any capture
+_fused_nb_predict = fuse(_nb_predict_program)
+_fused_nb_log_proba = fuse(_nb_log_proba_program)
+_fused_nb_proba = fuse(_nb_proba_program)
 
 
 class GaussianNB(ClassificationMixin, BaseEstimator):
@@ -176,41 +218,29 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
         return self
 
     # ------------------------------------------------------------------ #
-    def _joint_log_likelihood(self, x: DNDarray, op: str):
-        """``(x, jll)``: ``log P(c) + sum_f log N(x_f | theta_cf,
-        sigma_cf)`` per row and class, in float64."""
+    def _fit_params(self):
+        """The fitted parameters as float64 host arrays: the operands of
+        the fused predict programs (same shapes across refits: cache
+        hits)."""
         if self.theta_ is None:
             raise RuntimeError("fit() must be called before predict()")
-        x = sanitize_predict_in(x, n_features=self.theta_.shape[1], op=op)
-        arr = x.larray.to(torch.float64)
-        theta, sigma, prior = (
-            torch.as_tensor(np.asarray(a, dtype=np.float64), device=arr.device)
-            for a in (self.theta_, self.sigma_, self.class_prior_)
-        )
-        logprior = torch.log(torch.clamp_min(prior, 1e-300))
-        n_ij = -0.5 * torch.sum(torch.log(2.0 * math.pi * sigma), dim=1)
-        diff = arr[:, None, :] - theta[None, :, :]
-        ll = n_ij[None, :] - 0.5 * torch.sum(diff**2 / sigma[None, :, :], dim=2)
-        return x, logprior[None, :] + ll
-
-    @staticmethod
-    def _rows(x: DNDarray, garr: torch.Tensor) -> DNDarray:
-        split = x.split if x.split == 0 else None
-        return DNDarray(garr, tuple(garr.shape), types.canonical_heat_type(garr.dtype), split, x.device, x.comm)
+        return tuple(np.asarray(a, dtype=np.float64)
+                     for a in (self.theta_, self.sigma_, self.class_prior_))
 
     def predict(self, x: DNDarray) -> DNDarray:
-        """The class of largest posterior for each row."""
-        x, jll = self._joint_log_likelihood(x, "GaussianNB.predict")
-        classes = torch.as_tensor(np.asarray(self.classes_), device=jll.device)
-        return self._rows(x, classes[torch.argmax(jll, dim=1)])
+        """The class of largest posterior for each row, one fused program."""
+        theta, sigma, prior = self._fit_params()
+        x = sanitize_predict_in(x, n_features=theta.shape[1], op="GaussianNB.predict")
+        return _fused_nb_predict(x, theta, sigma, prior, np.asarray(self.classes_))
 
     def predict_log_proba(self, x: DNDarray) -> DNDarray:
-        """Normalized log posteriors, float32."""
-        x, jll = self._joint_log_likelihood(x, "GaussianNB.predict_log_proba")
-        return self._rows(x, (jll - torch.logsumexp(jll, dim=1, keepdim=True)).to(torch.float32))
+        """Normalized log posteriors, float32, one fused program."""
+        theta, sigma, prior = self._fit_params()
+        x = sanitize_predict_in(x, n_features=theta.shape[1], op="GaussianNB.predict_log_proba")
+        return _fused_nb_log_proba(x, theta, sigma, prior)
 
     def predict_proba(self, x: DNDarray) -> DNDarray:
-        """Posterior probabilities, float32."""
-        x, jll = self._joint_log_likelihood(x, "GaussianNB.predict_proba")
-        log_prob = (jll - torch.logsumexp(jll, dim=1, keepdim=True)).to(torch.float32)
-        return self._rows(x, torch.exp(log_prob))
+        """Posterior probabilities, float32, one fused program."""
+        theta, sigma, prior = self._fit_params()
+        x = sanitize_predict_in(x, n_features=theta.shape[1], op="GaussianNB.predict_proba")
+        return _fused_nb_proba(x, theta, sigma, prior)

@@ -16,6 +16,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..core._compile import cache_stable, jitted
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.dndarray import DNDarray
 
@@ -71,6 +72,15 @@ def ring_map(fn: Callable, x, comm: Optional[TorchCommunication] = None, axis: i
         arr = arr.movedim(axis, 0)
     if size == 1:
         return torch.as_tensor(fn(arr, arr, 0))[None]
+    if cache_stable(fn):
+        # one program per (comm, fn), as the reference's; an unstable fn
+        # runs uncounted, as its transient program does there
+        return jitted(("ring_map", comm, fn), lambda: _ring_rounds)(fn, arr, comm)
+    return _ring_rounds(fn, arr, comm)
+
+
+def _ring_rounds(fn: Callable, arr: torch.Tensor, comm: TorchCommunication) -> torch.Tensor:
+    size = comm.size
     arr = comm.pad_to_shards(arr, axis=0)
     stationary = _stacked(arr, size)
     rotating = arr
@@ -106,6 +116,11 @@ def halo_exchange(x, halo_size: int, comm: Optional[TorchCommunication] = None):
     if size == 1 or halo_size == 0:
         z = torch.zeros((halo_size,) + tuple(arr.shape[1:]), dtype=arr.dtype, device=arr.device)
         return z, z
+    return jitted(("halo_exchange", comm, halo_size), lambda: _halos)(arr, comm, halo_size)
+
+
+def _halos(arr: torch.Tensor, comm: TorchCommunication, halo_size: int):
+    size = comm.size
     blocks = _stacked(comm.pad_to_shards(arr, axis=0), size)
     tails, heads = blocks[:, -halo_size:], blocks[:, :halo_size]
     prev = torch.zeros_like(tails)

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..core._compile import jitted
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.dndarray import DNDarray
 from .flash_attention import (
@@ -124,7 +125,8 @@ def ring_attention(
         if size == 1 and local_kernel != "xla":
             out = flash_attention(q, k, v, causal=causal)
         else:
-            out = _dense_attention(q, k, v, causal)
+            key = ("ring_attention.single_xla", causal, B, S, H, D, q.dtype)
+            out = jitted(key, lambda: _dense_attention)(q, k, v, causal)
         return out if batched else out[0]
 
     L = S // size
@@ -139,15 +141,18 @@ def ring_attention(
     use_flash = local_kernel == "flash" or (
         local_kernel == "auto" and q.device.type == "cuda" and conforming
     )
+    shape = (B, S, H, D, q.dtype)
     if use_flash:
         if zigzag and conforms(L // 2, D, q.dtype):
-            out = _flash_zigzag(q, k, v, comm)
+            out = jitted(("ring_attention.flash_zz", comm) + shape, lambda: _flash_zigzag)(q, k, v, comm)
         else:
-            out = _flash_contiguous(q, k, v, causal, comm)
+            out = jitted(("ring_attention.flash", comm, causal) + shape, lambda: _flash_contiguous)(
+                q, k, v, causal, comm)
     elif zigzag:
-        out = _xla_zigzag(q, k, v, comm)
+        out = jitted(("ring_attention.xla_zz", comm) + shape, lambda: _xla_zigzag)(q, k, v, comm)
     else:
-        out = _xla_contiguous(q, k, v, causal, comm)
+        out = jitted(("ring_attention.xla", comm, causal) + shape, lambda: _xla_contiguous)(
+            q, k, v, causal, comm)
     return out if batched else out[0]
 
 

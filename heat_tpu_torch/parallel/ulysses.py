@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..core._compile import jitted
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.dndarray import DNDarray
 from .flash_attention import _dense_attention, conforms, flash_attention
@@ -66,7 +67,8 @@ def ulysses_attention(
         if size == 1 and local_kernel != "xla":
             out = flash_attention(q, k, v, causal=causal)
         else:
-            out = _dense_attention(q, k, v, causal)
+            key = ("ulysses.fallback", causal, B, S, H, D, q.dtype)
+            out = jitted(key, lambda: _dense_attention)(q, k, v, causal)
         return out if batched else out[0]
 
     conforming = conforms(S, D, q.dtype)
@@ -79,6 +81,13 @@ def ulysses_attention(
     use_flash = local_kernel == "flash" or (
         local_kernel == "auto" and q.device.type == "cuda" and conforming
     )
+    key = ("ulysses.flash" if use_flash else "ulysses.xla", comm, causal, B, S, H, D, q.dtype)
+    out = jitted(key, lambda: _ulysses)(q, k, v, causal, comm, use_flash)
+    return out if batched else out[0]
+
+
+def _ulysses(q, k, v, causal: bool, comm, use_flash: bool) -> torch.Tensor:
+    """The two all-to-alls around the per-position attention."""
     # sequence -> heads: each position now holds the full sequence of H/p heads
     qh, kh, vh = (comm.alltoall(t, split_axis=2, concat_axis=1) for t in (q, k, v))
     if use_flash:
@@ -86,5 +95,4 @@ def ulysses_attention(
     else:
         out = _dense_attention(qh, kh, vh, causal)
     # heads -> sequence, the caller's layout
-    out = comm.alltoall(out, split_axis=1, concat_axis=2)
-    return out if batched else out[0]
+    return comm.alltoall(out, split_axis=1, concat_axis=2)

@@ -40,7 +40,9 @@ import torch.nn.functional as F
 
 from ..core import factories, types
 from ..core.base import BaseEstimator, RegressionMixin
+from ..core._tracing import record_dispatch
 from ..core.dndarray import DNDarray
+from ..core.fuse import fuse
 from ..core.sanitation import sanitize_in, sanitize_predict_in
 from ..telemetry import _core as _tel
 
@@ -48,6 +50,17 @@ __all__ = ["Lasso"]
 
 #: power-iteration steps of the ISTA step size
 _POWER_STEPS = 50
+
+
+def _lasso_predict_program(x: DNDarray, theta: DNDarray) -> DNDarray:
+    """``y = theta_0 + x @ theta_1:`` as one program, so a warm predict is
+    one dispatch (one CUDA-graph replay on the card)."""
+    th = theta.larray.reshape(-1)
+    pred = torch.addmv(th[:1], x.larray.to(torch.float32), th[1:]).reshape(-1, 1)
+    return DNDarray(pred, (x.shape[0], 1), types.float32, x.split, x.device, x.comm)
+
+
+_fused_lasso_predict = fuse(_lasso_predict_program)
 
 
 class Lasso(RegressionMixin, BaseEstimator):
@@ -348,6 +361,13 @@ class Lasso(RegressionMixin, BaseEstimator):
                 _cq._account_wire("allreduce", mode, m, p, reps=it - it0)
 
         site = "lasso.gd_q" if mode is not None else "lasso.gd"
+        if mode is not None:
+            ring_segment = segment
+
+            def segment(carry, stop):
+                record_dispatch()  # a segment is one program (reference lasso.py:627)
+                return ring_segment(carry, stop)
+
         carry = self._run_segments(ckpt, carry, int(self.max_iter), site, comm, segment, after)
         return carry[1], carry[0]
 
@@ -408,6 +428,7 @@ class Lasso(RegressionMixin, BaseEstimator):
             for (xc, yc), nv in _stream.stream_chunks(
                 (srcx, srcy), mb, it, stop, comm=comm, device=device
             ):
+                record_dispatch()  # a chunk step is one program (reference lasso.py:561)
                 w = (rows < nv).to(torch.float32)
                 a = torch.cat([w[:, None], xc[:mb]], dim=1)
                 grad = a.T @ (a @ theta - yc[:mb].reshape(mb)) / float(nv)
@@ -429,6 +450,4 @@ class Lasso(RegressionMixin, BaseEstimator):
         if self.__theta is None:
             raise RuntimeError("fit() must be called before predict()")
         x = sanitize_predict_in(x, n_features=int(self.__theta.shape[0]) - 1, op="Lasso.predict")
-        th = self.__theta.larray.reshape(-1).to(x.larray.device)
-        pred = torch.addmv(th[:1], x.larray.to(torch.float32), th[1:]).reshape(-1, 1)
-        return DNDarray(pred, (x.shape[0], 1), types.float32, x.split, x.device, x.comm)
+        return _fused_lasso_predict(x, self.__theta)

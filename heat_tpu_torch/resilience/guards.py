@@ -36,9 +36,10 @@ Policies
     call — while every *healthy* call stays compressed.  The event lands
     in the structured incident log.
 
-The reference also registers the policy with its compiled-program cache
-keys (``_guard_token``); the port has no such caches yet, and the token
-comes with them.
+The policy joins every program cache key through
+:func:`heat_tpu_torch.core._compile.register_key_context`
+(``_guard_token``), so a fused program captured with the health output,
+or without it, is never replayed under the other configuration.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..core._compile import register_key_context
 from ..core.communication import _user_stacklevel
 from . import incidents
 
@@ -119,6 +121,13 @@ def guard(policy: str, overflow_limit: Optional[float] = None):
     finally:
         _POLICY = prev
         _OVERFLOW_LIMIT = prev_limit
+
+
+@register_key_context
+def _guard_token() -> Tuple:
+    """The guard policy's contribution to every program cache key
+    (``jitted`` and the ``htt.fuse`` cache)."""
+    return ("guard", _POLICY, _OVERFLOW_LIMIT)
 
 
 def active() -> bool:

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..core import types
+from ..core._compile import jitted
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
 
@@ -51,15 +52,32 @@ def _wrap(X: DNDarray, d: torch.Tensor, dtype) -> DNDarray:
     return DNDarray(d, tuple(d.shape), dtype, split, X.device, X.comm)
 
 
+def _euclidean(xa: torch.Tensor, ya: torch.Tensor, quadratic_expansion: bool) -> torch.Tensor:
+    if quadratic_expansion:
+        return torch.sqrt(quadratic_d2(xa, ya))
+    return torch.cdist(xa, ya, compute_mode="donot_use_mm_for_euclid_dist")
+
+
+def _rbf(xa: torch.Tensor, ya: torch.Tensor, sigma: float, quadratic_expansion: bool) -> torch.Tensor:
+    if quadratic_expansion:
+        d2 = quadratic_d2(xa, ya)
+    else:
+        diff = xa[:, None, :] - ya[None, :, :]
+        d2 = torch.sum(diff * diff, dim=-1)
+    sig = torch.tensor(sigma, dtype=xa.dtype)
+    return torch.exp(-d2 / (2.0 * sig * sig).item())
+
+
+def _manhattan(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
+    return torch.cdist(xa, ya, p=1.0)
+
+
 def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
     """Pairwise euclidean distances between the rows of ``X`` and ``Y``
     (``Y = X`` when omitted)."""
     xa, ya, dtype = _prep(X, Y)
-    if quadratic_expansion:
-        d = torch.sqrt(quadratic_d2(xa, ya))
-    else:
-        d = torch.cdist(xa, ya, compute_mode="donot_use_mm_for_euclid_dist")
-    return _wrap(X, d, dtype)
+    fn = jitted(("dist.euclidean", quadratic_expansion), lambda: _euclidean)
+    return _wrap(X, fn(xa, ya, quadratic_expansion), dtype)
 
 
 def rbf(
@@ -69,13 +87,8 @@ def rbf(
     of ``X`` and ``Y`` (``Y = X`` when omitted); ``2 sigma^2`` is taken in
     the operands' type, as the reference takes it."""
     xa, ya, dtype = _prep(X, Y)
-    if quadratic_expansion:
-        d2 = quadratic_d2(xa, ya)
-    else:
-        diff = xa[:, None, :] - ya[None, :, :]
-        d2 = torch.sum(diff * diff, dim=-1)
-    sig = torch.tensor(sigma, dtype=xa.dtype)
-    return _wrap(X, torch.exp(-d2 / (2.0 * sig * sig).item()), dtype)
+    fn = jitted(("dist.rbf", quadratic_expansion), lambda: _rbf)
+    return _wrap(X, fn(xa, ya, sigma, quadratic_expansion), dtype)
 
 
 def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False) -> DNDarray:
@@ -84,4 +97,4 @@ def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False) -
     formulation behind it."""
     xa, ya, dtype = _prep(X, Y)
     del expand
-    return _wrap(X, torch.cdist(xa, ya, p=1.0), dtype)
+    return _wrap(X, jitted(("dist.manhattan",), lambda: _manhattan)(xa, ya), dtype)

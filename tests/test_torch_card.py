@@ -1073,3 +1073,166 @@ def test_resumed_int8_lasso_on_card_is_bitwise_and_launches_the_same(cuda_device
     assert counts[0] == counts[1] == [80, 120, 40, 40]
     assert resumed.n_iter == 40
     assert _bitwise(resumed.theta.larray, clean.theta.larray)
+
+
+# --------------------------------------------------------------------- #
+# htt.fuse: one CUDA-graph replay a call                                  #
+# --------------------------------------------------------------------- #
+def _fused_pipeline(a, b):
+    c = a + b
+    d = c - a
+    return htt.minimum(htt.sqrt(htt.abs(d)) + c, b * 2.0)
+
+
+def _fused_moments(a):
+    return htt.mean(a, axis=0), htt.std(a, axis=0)
+
+
+def _reads_a_device_scalar(a):
+    return a * float(a.larray.sum().item())
+
+
+def _forces_a_value(a):
+    return a * float(a.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,split", [((4, 6), 0), ((7, 5), 1), ((1024, 33), None)])
+def test_fused_capture_is_bitwise_eager_and_outputs_fresh(cuda_device, shape, split):
+    """The captured program's result is bitwise the eager pipeline's, a
+    later call's operands are copied in (the first result is untouched),
+    and a second key (another shape) is another program."""
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    rng = np.random.default_rng(7)
+    mk = lambda: htt.array(rng.standard_normal(shape).astype(np.float32), split=split, comm=comm)  # noqa: E731
+    a, b, c, d = mk(), mk(), mk(), mk()
+    htt.fuse.clear_cache()
+    fused = htt.fuse(_fused_pipeline)
+    r1 = fused(a, b)
+    keep = r1.larray.clone()
+    assert _bitwise(r1.larray, _fused_pipeline(a, b).larray)
+    r2 = fused(c, d)
+    assert _bitwise(r1.larray, keep)
+    assert _bitwise(r2.larray, _fused_pipeline(c, d).larray)
+    assert htt.fuse.cache_size() == 1
+
+
+@pytest.mark.gpu
+def test_fused_int8_moments_bitwise_eager_and_launch_counts(cuda_device):
+    """mean/std along the split under int8_block at 4 positions: the
+    capture is bitwise the eager call; the warm-up and the capture each
+    launch what one eager call launches."""
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    x = htt.array(np.random.default_rng(3).standard_normal((64, 4096)).astype(np.float32),
+                  split=0, comm=comm)
+    counted = (tcq.quantize_blocks, tcq.dequantize_add_quantize_blocks, tcq.dequantize_blocks)
+    with tcq.collective_precision("int8_block"):
+        for f in counted:
+            f.launches = 0
+        eager = _fused_moments(x)
+        once = [f.launches for f in counted]
+        fused = htt.fuse(_fused_moments)
+        first = fused(x)
+        after_build = [f.launches for f in counted]
+        again = fused(x)
+        after_replay = [f.launches for f in counted]
+    assert once == [2, 6, 2]
+    assert after_build == [3 * n for n in once] and after_replay == after_build
+    for e, f, g in zip(eager, first, again):
+        assert _bitwise(e.larray, f.larray) and _bitwise(e.larray, g.larray)
+
+
+@pytest.mark.gpu
+def test_fused_capture_failure_raises(cuda_device):
+    """A host read the capture cannot hold raises naming the pipeline; a
+    value-forcing DNDarray call raises FuseTraceError; neither runs
+    eagerly in its place."""
+    comm = htt.TorchCommunication([cuda_device])
+    x = htt.array(np.ones((8, 4), np.float32), split=0, comm=comm)
+    with pytest.raises(RuntimeError, match="_reads_a_device_scalar") as err:
+        htt.fuse(_reads_a_device_scalar)(x)
+    assert not isinstance(err.value, htt.FuseTraceError)
+    with pytest.raises(htt.FuseTraceError, match=r"float\(\)"):
+        htt.fuse(_forces_a_value)(x)
+
+
+@pytest.mark.gpu
+def test_fused_library_predicts_bitwise_eager(cuda_device):
+    """KMeans, GaussianNB and Lasso predicts and kurtosis/skew on the card,
+    each captured program bitwise its program run eagerly."""
+    from heat_tpu_torch.cluster import _kcluster
+    from heat_tpu_torch.core import statistics as st
+    from heat_tpu_torch.naive_bayes import gaussianNB as gnb
+    from heat_tpu_torch.regression import lasso
+
+    comm = htt.TorchCommunication([cuda_device])
+    rng = np.random.default_rng(11)
+    data = rng.standard_normal((2048, 8)).astype(np.float32)
+    x = htt.array(data, split=0, comm=comm)
+    km = htt.cluster.KMeans(n_clusters=4, init=htt.array(data[:4], comm=comm), max_iter=2).fit(x)
+    nb = htt.naive_bayes.GaussianNB().fit(x, htt.array(rng.integers(0, 4, 2048), split=0, comm=comm))
+    la = htt.regression.Lasso(max_iter=3).fit(x, htt.array(data[:, 0].copy(), split=0, comm=comm))
+    theta, sigma, prior = (torch.as_tensor(t, device=cuda_device) for t in nb._fit_params())
+    classes = torch.as_tensor(np.asarray(nb.classes_), device=cuda_device)
+    pairs = [
+        (km.predict(x), _kcluster._assign_program(x, km.cluster_centers_, km._metric)),
+        (nb.predict(x), gnb._nb_predict_program(x, theta, sigma, prior, classes)),
+        (nb.predict_proba(x), gnb._nb_proba_program(x, theta, sigma, prior)),
+        (la.predict(x), lasso._lasso_predict_program(x, la.theta)),
+        (htt.kurtosis(x, axis=0), st._kurtosis_program(x, 0, True, True)),
+        (htt.skew(x, axis=0), st._skew_program(x, 0, True)),
+    ]
+    for fused, eager in pairs:
+        assert _bitwise(fused.larray, eager.larray)
+
+
+def _graph_pool_bytes() -> int:
+    """Bytes reserved in graph memory pools (segments outside the caching
+    allocator's default pool, which no eager op can use)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+@pytest.mark.gpu
+def test_fused_predicts_over_many_batch_sizes_keep_memory_bounded(cuda_device):
+    """KMeans.predict on 24 row counts, in a shuffled order, builds 24
+    programs, whose static inputs alone (over 600 MiB) would stay on the
+    card in an unbounded cache.  Under a 256 MiB limit the cache never
+    holds more than the limit: the graph pools' reservation and the live
+    allocations stay under it, and once the caching allocator lets go of
+    its free blocks the reserved memory is back under it too.  Every
+    result is bitwise its eager program's."""
+    from heat_tpu_torch.cluster import _kcluster
+
+    comm = htt.TorchCommunication([cuda_device])
+    rng = np.random.default_rng(21)
+    rows = [200_000 + 4096 * int(i) for i in rng.permutation(24)]
+    data = rng.standard_normal((max(rows), 32)).astype(np.float32)
+    km = htt.cluster.KMeans(n_clusters=8, init=htt.array(data[:8], comm=comm), max_iter=2).fit(
+        htt.array(data[:4096], split=0, comm=comm))
+    xs = [htt.array(data[:n], split=0, comm=comm) for n in rows]
+    static = sum(x.larray.numel() * 4 for x in xs)
+    assert static > 600 << 20
+    limit, slack = 256 << 20, 64 << 20
+    prev = htt.fuse.set_cache_limit(limit)
+    htt.fuse.clear_cache()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pools0, allocated0 = _graph_pool_bytes(), torch.cuda.memory_allocated(cuda_device)
+        reserved0 = torch.cuda.memory_reserved(cuda_device)
+        for x in xs:
+            got = km.predict(x)
+            want = _kcluster._assign_program(x, km.cluster_centers_, km._metric)
+            assert _bitwise(got.larray, want.larray)
+            del got, want
+            assert htt.fuse.cache_bytes(cuda_device) <= limit
+            assert _graph_pool_bytes() - pools0 <= limit + slack
+            assert torch.cuda.memory_allocated(cuda_device) - allocated0 <= limit + slack
+        assert htt.fuse.cache_size() < len(rows)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_reserved(cuda_device) - reserved0 <= limit + slack
+    finally:
+        htt.fuse.set_cache_limit(prev)
+        htt.fuse.clear_cache()

@@ -54,7 +54,7 @@ PORTED_MODULES = [
     "arithmetics", "factories", "indexing", "printing", "dndarray", "_operations", "base",
     "exponential", "logical", "relational", "rounding", "statistics", "trigonometrics", "random",
     "linalg.basics", "linalg.qr", "linalg.svd", "linalg.solver", "manipulations", "tiling",
-    "io", "checkpoint",
+    "io", "checkpoint", "_tracing", "_compile", "fuse", "aot",
 ]
 
 

@@ -70,11 +70,40 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.core.io", "heat_tpu_torch.core.checkpoint", "heat_tpu_torch.io",
         "heat_tpu_torch.io.stream", "heat_tpu_torch.native", "heat_tpu_torch.datasets",
         "heat_tpu_torch.obs", "heat_tpu_torch.cluster.kmeans",
+        "heat_tpu_torch.core._tracing", "heat_tpu_torch.core._compile",
+        "heat_tpu_torch.core.fuse", "heat_tpu_torch.core.aot",
     ]
     proc = _run(
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_fuse_and_aot_run_without_jax_or_heat_tpu():
+    """``htt.fuse`` (a pipeline, a library predict) and an AOT export and
+    install on CPU positions, with neither jax nor heat_tpu imported."""
+    proc = _run(
+        "import pickle, sys, numpy as np, heat_tpu_torch as htt\n"
+        "from heat_tpu_torch.core import aot\n"
+        "htt.use_device('cpu')\n"
+        "comm = htt.TorchCommunication(['cpu'] * 4)\n"
+        "x = htt.array(np.arange(24, dtype=np.float32).reshape(6, 4), split=0, comm=comm)\n"
+        "f = htt.fuse(htt.sqrt)\n"
+        "with aot.capture_programs() as cap:\n"
+        "    want = f(x).numpy()\n"
+        "    k = htt.kurtosis(x, axis=0).numpy()\n"
+        "bundles = pickle.loads(pickle.dumps(aot.export_programs(cap)))\n"
+        "htt.fuse.clear_cache()\n"
+        "assert aot.install_programs(bundles, comm=comm) == 2\n"
+        "assert f(x).numpy().tobytes() == want.tobytes()\n"
+        "assert htt.kurtosis(x, axis=0).numpy().tobytes() == k.tobytes()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
         "assert not bad, bad\n"

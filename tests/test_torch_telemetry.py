@@ -12,8 +12,9 @@ compared:
 * on the instrumented collectives the event streams are equal once the
   reference's compiled-program events are dropped.  The filter (stated
   once, in :func:`_a14`): spans whose site starts with ``jitted:`` or
-  ``fuse:`` and events of type ``compile`` — the sites of the reference's
-  compiled-program layer, which the port does not have.  Timestamps are
+  ``fuse:`` and events of type ``compile`` — the compiled-program layer's
+  sites, which the two packages place differently (ROADMAP, dispatch
+  accounting), dropped on both sides.  Timestamps are
   left out of that comparison, since the dropped events read the clock.
 
 The rest mirrors ``tests/test_telemetry.py`` and the telemetry half of
@@ -136,7 +137,8 @@ def _comms(k):
 
 
 def _a14(ev) -> bool:
-    """The reference's compiled-program events, which the port lacks."""
+    """The compiled-program layer's events, placed differently by the two
+    packages."""
     site = ev.get("site", "") or ""
     return site.startswith(("jitted:", "fuse:")) or ev.get("type") == "compile"
 
@@ -713,8 +715,9 @@ def test_estimator_spans_report_subclass_name(tels):
 
 def test_kmeans_predict_under_telemetry_equals_labels_off():
     """The reference's ``predict`` raises with telemetry on before its
-    cdist was compiled (ROADMAP, faults of the reference); the port has
-    no compile layer and gives the labels it gives with telemetry off."""
+    cdist was compiled (ROADMAP, faults of the reference); the port's
+    ``jitted`` stages nothing on a first call and gives the labels it
+    gives with telemetry off."""
     _, comm = _comms(4)
     data = np.random.default_rng(5).normal(size=(64, 6)).astype(np.float32)
     x = htt.array(data, split=0, comm=comm)
