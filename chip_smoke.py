@@ -251,6 +251,23 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    fingerprint skipped.  (6) A pipeline calling ``float()`` on a DNDarray
    raises ``FuseTraceError``.  Every line carries the card's name and
    power limit; the phase prints ``phase14_s``.
+15. planned redistribution (``comm/redistribute.py``) at the reference
+   benchmark's sizes: ``resplit_rates``' 2048 x 512 float32, 0 -> 1 at 4
+   and 8 positions, exact and ``int8_block``; the blobs 0 -> 1 under
+   ``int8_block`` at 4 positions and a mixed-split ``x + y`` on them; a
+   grid plan of 4096 x 512 float32 from ``(0, 1)`` to ``(1, 0)`` on 2 x 2
+   and 2 x 4, exact and ``int8_block``.  The counts are set to 0 before
+   these calls and read after (B1 and B2 once for each split -> split
+   stage that compresses).  Exact plans give the input bitwise; the int8
+   results are bitwise the plain version (the 1-D ones the reference's
+   rotation schedule replayed piece by piece with the plain quantize and
+   dequantize on the card, the grid ones the port's CPU run) and within
+   ``absmax/254`` of the input.  Each call's wall and device time is
+   printed beside its monolithic twin (the padded copy), the batched
+   pieces beside a per-piece loop of the kernels, the measured peak
+   allocation beside ``Plan.peak_live_bytes``, and the rate of a roll of
+   the stacked ``(4, ...)`` blobs by one position (the port's move between
+   positions: ``comm/_costs.py``'s ``DEFAULT_ICI_GBPS``); ``phase15_s``.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -406,6 +423,15 @@ P14_RING = {"blockquant_quantize": 2, "blockquant_dequantize_add_quantize": 6,
 #: live allocations and (once the allocator lets its free blocks go) the
 #: reserved memory may grow by the limit plus this much (outputs in flight)
 FUSE_BOUND_LIMIT, FUSE_BOUND_STEP, FUSE_BOUND_SLACK = 256 << 20, 25_000, 64 << 20
+#: phase 15: ``resplit_rates``' shape and position counts (bench.py:1216-1300)
+#: and the grid plan at phase 11's QR size (bench.py:1487-1498)
+RESPLIT_SHAPE, RESPLIT_POSITIONS = (2048, 512), (4, 8)
+GRID_PLAN_SHAPE = (4096, 512)
+#: phase 15's launches: B1 and B2 once for each compressed split -> split
+#: stage: 2048 x 512 at 4 and 8 (2), the blobs' resplit and their mixed
+#: add (2), the grid's two compressed stages on 2 x 2 and 2 x 4 (4)
+P15_LAUNCHES = {"blockquant_quantize": 8, "blockquant_dequantize": 8,
+                "blockquant_dequantize_fma": 0, "blockquant_dequantize_add_quantize": 0}
 #: phase 12's armed plans, each firing on the first allreduce: NaN and
 #: +Inf written to element 0, the 1e36 saturation, the bit-30 flip
 PHASE12_FAULTS = (("nonfinite", {}), ("nonfinite", {"value": float("inf")}), ("saturate", {}),
@@ -3480,6 +3506,185 @@ def phase_compiled(torch, htt, cq, dev, data, labels, counted, card):
     return launches, metrics
 
 
+# --------------------------------------------------------------------- #
+# phase 15: planned redistribution                                        #
+# --------------------------------------------------------------------- #
+def pieces_replay(torch, x, p: int, src: int, dst: int, quant, dequant):
+    """The reference's rotation schedule replayed piece by piece on a
+    true-shape tensor split at ``src`` over ``p`` positions, resplit to
+    ``dst``: the destination axis padded to ``p * ceil(n/p)``, every piece
+    (source block ``s`` restricted to destination block ``d != s``)
+    flattened in its own row-major order, zero-padded to a multiple of
+    BLOCK (at least one), encoded by ``quant`` and decoded by ``dequant``;
+    diagonal pieces kept.  One ``quant`` and one ``dequant`` call a piece."""
+    n_d = int(x.shape[dst])
+    w_d, w_s = -(-n_d // p), int(x.shape[src]) // p
+    pads = [0] * (2 * x.ndim)
+    pads[2 * (x.ndim - 1 - dst) + 1] = p * w_d - n_d
+    xp = torch.constant_pad_nd(x, pads)
+    out = xp.clone()
+    for s in range(p):
+        for d in range(p):
+            if s == d:
+                continue
+            piece = xp.narrow(src, s * w_s, w_s).narrow(dst, d * w_d, w_d)
+            flat = piece.reshape(-1).to(torch.float32)
+            n = flat.numel()
+            flat = torch.nn.functional.pad(flat, (0, max(BLOCK, -(-n // BLOCK) * BLOCK) - n))
+            dec = dequant(*quant(flat))[:n].reshape(piece.shape).to(x.dtype)
+            out.narrow(src, s * w_s, w_s).narrow(dst, d * w_d, w_d).copy_(dec)
+    return out
+
+
+def peak_bytes(torch, fn) -> int:
+    """Bytes ``fn()`` allocates at its peak above what was live before."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return int(peak)
+
+
+def phase_redistribute(torch, htt, cq, dev, data, counted, card):
+    """Phase 15 (see the module docstring).  Returns ``(launches, metrics)``."""
+    from heat_tpu_torch.comm import redistribute as rd
+
+    metrics = {}
+    rng = np.random.default_rng(15)
+    small = rng.standard_normal(RESPLIT_SHAPE).astype(np.float32)
+    wide = rng.standard_normal(GRID_PLAN_SHAPE).astype(np.float32)
+    plain_q = lambda f: cq.quantize_blocks_plain(f.reshape(-1, BLOCK))  # noqa: E731
+    comms = {p: htt.TorchCommunication([dev] * p) for p in RESPLIT_POSITIONS}
+    grids = {m: htt.grid_comm(m, [dev] * (m[0] * m[1])) for m in GRID_MESHES}
+    y_np = rng.standard_normal(data.shape).astype(np.float32)
+    inputs = {p: htt.array(small, split=0, comm=comms[p]) for p in RESPLIT_POSITIONS}
+    blobs = htt.array(data, split=0, comm=comms[4])
+    y_blobs = htt.array(y_np, split=1, comm=comms[4])
+    gin = {m: htt.array(wide, splits=(0, 1), comm=grids[m]) for m in GRID_MESHES}
+
+    # the main path: every call once, the counts set to 0 just before
+    calls = []
+    for p in RESPLIT_POSITIONS:
+        calls.append((f"resplit_2048x512_{p}pos_exact", "f32", lambda p=p: htt.resplit(inputs[p], 1)))
+        calls.append((f"resplit_2048x512_{p}pos_int8", "int8_block", lambda p=p: htt.resplit(inputs[p], 1)))
+    calls.append(("resplit_blobs_4pos_int8", "int8_block", lambda: htt.resplit(blobs, 1)))
+    calls.append(("mixed_add_blobs_4pos_int8", "int8_block", lambda: blobs + y_blobs))
+    for m in GRID_MESHES:
+        tag = f"{m[0]}x{m[1]}"
+        calls.append((f"grid_resplit_4096x512_{tag}_exact", "f32", lambda m=m: htt.resplit(gin[m], (1, 0))))
+        calls.append((f"grid_resplit_4096x512_{tag}_int8", "int8_block", lambda m=m: htt.resplit(gin[m], (1, 0))))
+    for f in counted:
+        f.launches = 0
+    results, per_call = {}, {}
+    for key, mode, fn in calls:
+        before = [f.launches for f in counted]
+        with cq.collective_precision(mode):
+            results[key] = fn()
+        per_call[key] = [f.launches - b for f, b in zip(counted, before)]
+    torch.cuda.synchronize()
+    launches = {f"blockquant_{f.__name__.removesuffix('_blocks')}": f.launches for f in counted}
+    check(launches == P15_LAUNCHES, f"phase 15 launches {launches} != {P15_LAUNCHES}")
+    print(f"phase 15 launches {launches} (B1/B2/fma/hop a call: "
+          + ", ".join(f"{k} {v[0]}/{v[1]}/{v[2]}/{v[3]}" for k, v in per_call.items()) + f") [{card}]")
+
+    # correctness: exact plans bitwise the input, int8 bitwise the plain
+    # version and within absmax/254
+    def within(got, want_np, what):
+        err = float(np.abs(got.astype(np.float64) - want_np).max())
+        bound = float(np.abs(want_np).max()) / 254.0
+        check(0.0 < err <= bound * (1 + 1e-6), f"phase 15 {what}: error {err} outside (0, absmax/254 = {bound}]")
+        return err
+
+    for p in RESPLIT_POSITIONS:
+        got = results[f"resplit_2048x512_{p}pos_exact"]
+        check(got.split == 1 and np.array_equal(got.numpy(), small), f"phase 15 exact 0 -> 1 at {p}: not the input")
+        got = results[f"resplit_2048x512_{p}pos_int8"]
+        plain = pieces_replay(torch, inputs[p].larray, p, 0, 1, plain_q, cq.dequantize_blocks_plain)
+        check(bitwise_equal(got._buffer, plain), f"phase 15 int8 0 -> 1 at {p}: != the plain replay, bitwise")
+        metrics[f"resplit_2048x512_{p}pos_int8_err"] = within(got.numpy(), small, f"int8 0 -> 1 at {p}")
+    got = results["resplit_blobs_4pos_int8"]
+    plain = pieces_replay(torch, blobs.larray, 4, 0, 1, plain_q, cq.dequantize_blocks_plain)
+    check(bitwise_equal(got._buffer, plain), "phase 15 blobs int8 0 -> 1: != the plain replay, bitwise")
+    metrics["resplit_blobs_4pos_int8_err"] = within(got.numpy(), data, "blobs int8 0 -> 1")
+    got = results["mixed_add_blobs_4pos_int8"]
+    y0 = pieces_replay(torch, y_blobs.larray, 4, 1, 0, plain_q, cq.dequantize_blocks_plain)
+    check(got.split == 0 and bitwise_equal(got.larray, blobs.larray + y0),
+          "phase 15 mixed-split x + y: != x + the plain replay of y's resplit, bitwise")
+    within(got.numpy() - data, y_np, "mixed-split x + y")
+    cpu_grids = {m: htt.grid_comm(m, ["cpu"] * (m[0] * m[1])) for m in GRID_MESHES}
+    for m in GRID_MESHES:
+        tag = f"{m[0]}x{m[1]}"
+        got = results[f"grid_resplit_4096x512_{tag}_exact"]
+        check(got.splits == (1, 0) and np.array_equal(got.numpy(), wide), f"phase 15 grid exact {tag}: not the input")
+        got = results[f"grid_resplit_4096x512_{tag}_int8"]
+        with cq.collective_precision("int8_block"):
+            on_cpu = htt.resplit(htt.array(wide, splits=(0, 1), comm=cpu_grids[m]), (1, 0))
+        check(bitwise_equal(got._buffer.cpu(), on_cpu._buffer),
+              f"phase 15 grid int8 {tag}: != the plain version (the port's CPU run), bitwise")
+        metrics[f"grid_resplit_4096x512_{tag}_int8_err"] = within(got.numpy(), wide, f"grid int8 {tag}")
+    print(f"phase 15: exact plans bitwise the input; int8 bitwise the plain version, errors "
+          + ", ".join(f"{k.removesuffix('_err')} {v:.4g}" for k, v in metrics.items()) + " (within absmax/254)")
+
+    # times: each call beside its monolithic twin
+    for key, mode, fn in calls:
+        with cq.collective_precision(mode):
+            wall, dms = wall_ms(fn), profiled_ms(torch, fn)
+            with rd.redistribution("monolithic"):
+                mwall, mdms = wall_ms(fn), profiled_ms(torch, fn)
+        metrics.update({f"{key}_ms": wall, f"{key}_device_ms": dms,
+                        f"{key}_monolithic_ms": mwall, f"{key}_monolithic_device_ms": mdms})
+        print(f"  {key}: {wall:.3f} ms wall, {dms:.3f} ms device; monolithic twin {mwall:.3f} / {mdms:.3f} ms")
+
+    # the batched pieces beside a per-piece loop of the kernels
+    for p, x in [(4, blobs), (8, inputs[8])]:
+        tag = "blobs_4pos" if p == 4 else "2048x512_8pos"
+        with cq.collective_precision("int8_block"):
+            loop = pieces_replay(torch, x.larray, p, 0, 1, cq.quantize_blocks, cq.dequantize_blocks)
+            batched = htt.resplit(x, 1)
+            check(bitwise_equal(batched._buffer, loop), f"phase 15 {tag}: batched != per-piece loop, bitwise")
+            b_dev = profiled_ms(torch, lambda: htt.resplit(x, 1))
+            l_dev = profiled_ms(torch, lambda: pieces_replay(torch, x.larray, p, 0, 1, cq.quantize_blocks,
+                                                             cq.dequantize_blocks))
+            b_wall = wall_ms(lambda: htt.resplit(x, 1))
+            l_wall = wall_ms(lambda: pieces_replay(torch, x.larray, p, 0, 1, cq.quantize_blocks,
+                                                   cq.dequantize_blocks))
+        metrics.update({f"pieces_{tag}_batched_ms": b_wall, f"pieces_{tag}_batched_device_ms": b_dev,
+                        f"pieces_{tag}_loop_ms": l_wall, f"pieces_{tag}_loop_device_ms": l_dev})
+        print(f"  int8 pieces {tag}: batched {b_wall:.3f} ms wall / {b_dev:.3f} ms device, per-piece loop "
+              f"{l_wall:.3f} / {l_dev:.3f} ms ({p * (p - 1)} pieces)")
+
+    # measured peak allocation beside the plan's modeled peak (per position)
+    for key, mode, shape, dt, src, dst, size, mesh, fn in [
+        ("resplit_2048x512_8pos_int8", "int8_block", RESPLIT_SHAPE, "float32", 0, 1, 8, None,
+         lambda: htt.resplit(inputs[8], 1)),
+        ("resplit_blobs_4pos_int8", "int8_block", data.shape, "float32", 0, 1, 4, None,
+         lambda: htt.resplit(blobs, 1)),
+        ("grid_resplit_4096x512_2x4_int8", "int8_block", GRID_PLAN_SHAPE, "float32", (0, 1), (1, 0), 8, (2, 4),
+         lambda: htt.resplit(gin[(2, 4)], (1, 0))),
+    ]:
+        with cq.collective_precision(mode):
+            plan = rd.plan(shape, dt, src, dst, size, mesh_shape=mesh)
+            peak = peak_bytes(torch, fn)
+        metrics[f"{key}_peak_bytes"] = peak
+        metrics[f"{key}_plan_peak_live_bytes"] = plan.peak_live_bytes
+        print(f"  {key}: peak {peak} B allocated on the card for all {size} positions; "
+              f"Plan.peak_live_bytes {plan.peak_live_bytes} B a position ({plan.mode}, {len(plan.steps)} steps)")
+
+    # the rate of a move between positions: a roll of the stacked pieces
+    stacked = blobs.larray.reshape(4, -1)
+    roll_ms = device_ms(lambda t: torch.roll(t, 1, dims=0), [(stacked,)], per_graph=8, trials=7)
+    small4 = inputs[4].larray.reshape(4, -1)
+    roll_small_ms = device_ms(lambda t: torch.roll(t, 1, dims=0), [(small4,)], per_graph=32, trials=7)
+    metrics["roll_gbps"] = stacked.numel() * 4 / (roll_ms * 1e6)
+    metrics["roll_4mb_gbps"] = small4.numel() * 4 / (roll_small_ms * 1e6)
+    print(f"phase 15 roll of the stacked (4, ...) pieces: {metrics['roll_gbps']:.1f} GB/s at 64 MB "
+          f"({roll_ms:.4f} ms), {metrics['roll_4mb_gbps']:.1f} GB/s at 4 MB [{card}]")
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -3699,6 +3904,15 @@ def run(dev, out_path=None) -> int:
             row.setdefault("launches_by_phase", {})["14"] = fuse_launches[row["name"]]
             row["launches"] += fuse_launches[row["name"]]
     print(f"phase 14: {fuse_metrics['phase14_s']:.1f} s; launches {fuse_launches} [{card}]")
+    # ---------------------------------------------------------------- 15
+    t15 = time.perf_counter()
+    redist_launches, redist_metrics = phase_redistribute(torch, htt, cq, dev, data, counted, card)
+    redist_metrics["phase15_s"] = time.perf_counter() - t15
+    for row in kernel_rows:
+        if row["name"] in redist_launches:
+            row.setdefault("launches_by_phase", {})["15"] = redist_launches[row["name"]]
+            row["launches"] += redist_launches[row["name"]]
+    print(f"phase 15: {redist_metrics['phase15_s']:.1f} s; launches {redist_launches} [{card}]")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -3719,6 +3933,7 @@ def run(dev, out_path=None) -> int:
         **base_metrics,
         **io_metrics,
         **fuse_metrics,
+        **redist_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

@@ -17,6 +17,7 @@ from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in, sanitize_predict_in
 from ..spatial.distance import quadratic_d2
+from ..core._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["KNN"]
 
@@ -74,6 +75,7 @@ class KNN(ClassificationMixin, BaseEstimator):
                 f"but got {y.shape}"
             )
 
+    @_split_semantics("entry_split0")
     def predict(self, x: DNDarray) -> DNDarray:
         """The majority class of each query row's k nearest training rows."""
         x = sanitize_predict_in(x, n_features=self.x.shape[1], op="KNN.predict")

@@ -19,6 +19,7 @@ from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.fuse import fuse
 from ..core.sanitation import sanitize_predict_in
+from ..core._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["_KCluster"]
 
@@ -201,6 +202,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
             labels, tuple(labels.shape), types.int64, labels_split, x.device, x.comm
         )
 
+    @_split_semantics("entry_split0")
     def predict(self, x: DNDarray) -> DNDarray:
         """Nearest learned centroid of each sample."""
         return self._assign_to_cluster(x)

@@ -37,6 +37,7 @@ from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
 from ..telemetry import _core as _tel
 from ._kcluster import _KCluster, _quadratic_cdist
+from ..core._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["KMeans"]
 
@@ -148,6 +149,7 @@ class KMeans(_KCluster):
             it, c = it + 1, nc
         return it, c, shift, e
 
+    @_split_semantics("entry_fit")
     def fit(self, x, resume=False, comm=None, device=None) -> "KMeans":
         """Lloyd iterations until the squared centroid shift is <= tol, or
         ``max_iter`` steps.

@@ -1,11 +1,20 @@
-"""Ring-dispatch telemetry: the issue/consume span pair around an eager
-ring and the overlapped/serial dispatch counters.
+"""Latency-hiding policy for the ring collectives, and the ring-dispatch
+telemetry.
 
-Port of the telemetry half of ``heat_tpu/comm/overlap.py`` (``_note_ring``
-and ``timed_dispatch``).  The reference's latency-hiding policy
-(``set_overlap``/``overlap``) and its double-buffered ring bodies are not
-ported: on one card every ring runs its serial body, so every dispatch
-counts as ``overlapped=False``.
+Port of ``heat_tpu/comm/overlap.py``.  The policy knob is the
+reference's: ``set_overlap("on" | "off" | "auto")`` (and the
+:func:`overlap` context manager) sets a process-wide mode whose token
+joins every compiled-program key
+(:func:`heat_tpu_torch.core._compile.register_key_context`), so flipping
+it keys fresh ``jitted`` and ``htt.fuse`` entries.  :func:`overlap_enabled`
+answers whether a ring over ``size`` positions runs its double-buffered
+body: ``"on"`` says yes for ``size > 1``, ``"off"`` no, and ``"auto"``,
+which in the reference means "on a TPU", resolves to serial, because
+every position of the port shares one card and a hop is a roll on it.
+(The rule for positions on several cards comes with them.)  The port's
+ring bodies are the reference's serial ones, which its double-buffered
+bodies equal bit for bit, so the policy changes the telemetry's
+``overlapped`` flag of a planned resplit and nothing in the values.
 
 Telemetry (all behind the single ``_tel.enabled`` predicate — zero
 overhead while disabled):
@@ -21,11 +30,68 @@ overhead while disabled):
 
 from __future__ import annotations
 
+import contextlib
+from typing import Tuple
+
 import torch
 
+from ..core._compile import register_key_context
 from ..telemetry import _core as _tel
 
-__all__ = ["timed_dispatch"]
+__all__ = [
+    "get_overlap",
+    "overlap",
+    "overlap_enabled",
+    "set_overlap",
+    "timed_dispatch",
+]
+
+_MODES = ("on", "off", "auto")
+_OVERLAP = "auto"
+
+
+def set_overlap(mode: str) -> None:
+    """Set the process-wide ring-overlap policy: ``"on"``, ``"off"`` or
+    ``"auto"`` (the default; serial on the port's one card)."""
+    global _OVERLAP
+    if mode not in _MODES:
+        raise ValueError(
+            f"unknown overlap mode {mode!r}: expected one of {_MODES}"
+        )
+    _OVERLAP = mode
+
+
+def get_overlap() -> str:
+    """The current process-wide ring-overlap policy."""
+    return _OVERLAP
+
+
+@contextlib.contextmanager
+def overlap(mode: str):
+    """Context-manager form of :func:`set_overlap`."""
+    prev = _OVERLAP
+    set_overlap(mode)
+    try:
+        yield
+    finally:
+        set_overlap(prev)
+
+
+@register_key_context
+def _overlap_token() -> Tuple:
+    """The overlap policy's contribution to every compiled-program key:
+    flipping the policy keys fresh entries."""
+    return ("overlap", _OVERLAP)
+
+
+def overlap_enabled(size: int) -> bool:
+    """Whether a ring over ``size`` positions runs its double-buffered
+    body under the current policy: never at one position or under
+    ``"off"``, always under ``"on"``, and under ``"auto"`` not while
+    every position shares one card."""
+    if _OVERLAP == "off" or size <= 1:
+        return False
+    return _OVERLAP == "on"
 
 
 def _note_ring(overlapped: bool) -> None:

@@ -135,8 +135,10 @@ def __binary_op(
     Python scalars are weak, a Python ``float`` beside an exact array
     gives float64) before ``operation`` runs.  The result takes the split
     of the split operand (re-anchored from the right when broadcasting
-    prepends axes); two differently split operands compute on their
-    global views and keep ``t1``'s split."""
+    prepends axes); of two differently split operands of one rank, ``t2``
+    is resplit to ``t1``'s split first (under a compressing collective
+    precision its moving pieces go through the wire format, as in the
+    reference)."""
     fn_kwargs = fn_kwargs or {}
     scalar_1, scalar_2 = np.isscalar(t1), np.isscalar(t2)
     if scalar_1 and scalar_2:
@@ -151,8 +153,13 @@ def __binary_op(
         anchor = t2
     elif isinstance(t1, DNDarray):
         anchor = t1
-        if isinstance(t2, DNDarray) and t1.split is None and t2.split is not None:
-            anchor = t2
+        if isinstance(t2, DNDarray):
+            if t1.split is None and t2.split is not None:
+                anchor = t2
+            elif t2.split is not None and t2.split != t1.split and t1.ndim == t2.ndim:
+                # both split, differently: t2 laid out at t1's split, as the
+                # reference does (through the redistribution seam)
+                t2 = t2.resplit(t1.split)
     else:
         raise TypeError(f"expected a DNDarray or scalar, got {type(t1)}")
     if not isinstance(anchor, DNDarray):

@@ -281,3 +281,21 @@ def prod(x, axis=None, out=None, keepdims=None, keepdim=None):
     """Product over ``axis`` (None: all axes); exact types give int64."""
     keepdims = merge_keepdims(keepdims, keepdim)
     return _operations.__reduce_op(_operations._prod, x, axis, out, keepdims=keepdims)
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {
+        "binary": (
+            "add", "sub", "mul", "div", "floordiv", "fmod", "remainder",
+            "mod", "pow", "left_shift", "right_shift", "bitwise_and",
+            "bitwise_or", "bitwise_xor",
+        ),
+        "elementwise": ("invert",),
+        "reduction": ("sum", "prod"),
+        "cumulative": ("cumsum", "cumprod"),
+    },
+)

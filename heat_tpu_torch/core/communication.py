@@ -424,16 +424,41 @@ class TorchCommunication(Communication):
         with _tel.span("comm:reshard"):
             return relayout()
 
-    def resplit(self, array: torch.Tensor, split) -> torch.Tensor:
+    def resplit(self, array: torch.Tensor, split, src=None) -> torch.Tensor:
         """The at-rest form of a TRUE-shape global tensor laid out at
         ``split``: the split axis zero-padded to its canonical length.  A
         splits tuple, or any layout on a grid, pads every sharded
         dimension over its mesh axis (:meth:`pad_to_shards` ``splits=``).
 
-        This is the layout commit: outside a trace, on several positions,
-        it counts one dispatch (the reference's reshard,
+        A tensor carries no layout, so ``src`` names the one it is laid
+        out at (None: replicated).  The change consults the
+        redistribution policy (:func:`heat_tpu_torch.comm.set_redistribution`):
+        an eligible eager change runs its plan
+        (:mod:`heat_tpu_torch.comm.redistribute`), which under a
+        compressing collective precision sends the moving pieces through
+        the wire format; everything else is the monolithic padded copy.
+
+        The monolithic commit, outside a trace and on several positions,
+        counts one dispatch (the reference's reshard,
         ``communication.py:1105``); inside an ``htt.fuse`` trace it counts
         nothing and inspects nothing on the host."""
+        return self._relayout(array, split, src, allow_pad=False)
+
+    def _relayout(self, array: torch.Tensor, split, src, allow_pad: bool) -> torch.Tensor:
+        """The layout change behind :meth:`resplit` and :meth:`commit_split`:
+        the planned result where the policy plans it, else the monolithic
+        padded copy."""
+        if self.mesh_ndim > 1 and array.ndim:
+            from ..comm import redistribute as _rd
+
+            splits = self.normalize_splits(array.ndim, split)
+            out = _rd.grid_redistribute_or_none(array, splits, self, allow_pad, src=src)
+            if out is not None:
+                return out
+        elif array.ndim:
+            out = self._planned_resplit(array, split, src, allow_pad)
+            if out is not None:
+                return out
         if split is None or array.ndim == 0:
             return array
         if in_trace():
@@ -445,6 +470,43 @@ class TorchCommunication(Communication):
                 return self._reshard(lambda: self._pad_to(array, split))
         return self._pad_to(array, split)
 
+    def _planned_resplit(self, array: torch.Tensor, split, src, allow_pad: bool) -> Optional[torch.Tensor]:
+        """The redistribution-policy seam on one mesh axis: the planned
+        result, or None when this change stays on the monolithic path.
+
+        Falls back (as the reference's ``_planned_resplit``) under policy
+        "monolithic"; at one position; inside a trace; for 0-d and empty
+        tensors; for a ragged source; when ``src == dst``; for a ragged
+        destination the caller does not let pad (``resplit``;
+        ``commit_split`` pads).  Policy "auto" also demands a split ->
+        split change of at least
+        :func:`heat_tpu_torch.comm.get_redistribution_threshold` bytes."""
+        from ..comm import redistribute as _rd
+
+        policy = _rd.get_redistribution()
+        if policy == "monolithic" or self.size == 1 or in_trace():
+            return None
+        if any(int(s) == 0 for s in array.shape):
+            return None
+        ndim = array.ndim
+        if isinstance(split, (tuple, list)):
+            split = self.split_view(self.normalize_splits(ndim, split))
+        if isinstance(src, (tuple, list)):
+            src = self.split_view(self.normalize_splits(ndim, src))
+        dst = None if split is None else int(split) % ndim
+        src = None if src is None else int(src) % ndim
+        if src is not None and int(array.shape[src]) % self.size:
+            return None  # ragged source: the monolithic copy handles it
+        if src == dst:
+            return None
+        if dst is not None and not allow_pad and int(array.shape[dst]) % self.size:
+            return None
+        if policy == "auto" and (
+            src is None or dst is None or _nbytes(array) < _rd.get_redistribution_threshold()
+        ):
+            return None
+        return _rd.redistribute(array, dst, comm=self, src=src)
+
     def _pad_to(self, array: torch.Tensor, split) -> torch.Tensor:
         if isinstance(split, (tuple, list)) or self.mesh_ndim > 1:
             return self.pad_to_shards(array, splits=self.normalize_splits(array.ndim, split))
@@ -454,15 +516,15 @@ class TorchCommunication(Communication):
         """Move the split from ``concat_axis`` to ``split_axis``: every
         position sends piece ``j`` of its shard (cut along ``split_axis``)
         to position ``j``, which concatenates what it receives along
-        ``concat_axis`` (the reference's all-to-all, the Ulysses
-        head<->sequence swap).  The global tensor already holds every
-        shard, so the exchange is an identity on it: the result is
-        ``array`` with ``split_axis`` zero-padded to its canonical length
-        (no copy when it divides)."""
-        del concat_axis  # the global tensor is the same at either split
+        ``concat_axis`` (the reference's all-to-all).  As in the
+        reference, this is :meth:`resplit` from ``concat_axis`` to
+        ``split_axis``, so the redistribution policy applies: the result
+        is ``array`` with ``split_axis`` zero-padded to its canonical
+        length, its moving pieces through the wire format where a plan
+        compresses them."""
         if self.size == 1 or array.ndim == 0:
             return array
-        return self.pad_to_shards(array, axis=int(split_axis) % array.ndim)
+        return self.resplit(array, int(split_axis) % array.ndim, src=int(concat_axis) % array.ndim)
 
     def ring_permute(self, array: torch.Tensor, shift: int = 1) -> torch.Tensor:
         """Rotate the axis-0 shards around the ring: position ``i``'s shard
@@ -475,12 +537,13 @@ class TorchCommunication(Communication):
         blocks = array.reshape((n, -1) + tuple(array.shape[1:]))
         return torch.roll(blocks, shifts=int(shift), dims=0).reshape(array.shape)
 
-    def commit_split(self, array: torch.Tensor, split: Optional[int]) -> torch.Tensor:
+    def commit_split(self, array: torch.Tensor, split, src=None) -> torch.Tensor:
         """The at-rest form of a TRUE-shape global tensor laid out at
-        ``split``: a ragged split axis zero-padded to its canonical length
-        (what :meth:`resplit` gives; the reference's ``resplit`` keeps the
-        true shape and this one pads)."""
-        return self.resplit(array, split)
+        ``split``, as :meth:`resplit` (``src`` the layout it is at), except
+        that a plan may pad a ragged destination axis (the reference's
+        ``resplit`` keeps the true shape there; both give the padded form
+        here)."""
+        return self._relayout(array, split, src, allow_pad=True)
 
     def permute(self, array: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """Point-to-point exchange of axis-0 shards: for every ``(src,

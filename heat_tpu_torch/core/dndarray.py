@@ -870,7 +870,7 @@ class DNDarray:
             # the same layout: a copy, no layout commit
             return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, self.__splits,
                             self.__device, self.__comm)
-        arr = self.__comm.resplit(self.larray, axis)
+        arr = self.__comm.commit_split(self.larray, axis, src=self.__splits)
         if arr.untyped_storage().data_ptr() == self.__array.untyped_storage().data_ptr():
             arr = arr.contiguous().clone()
         return DNDarray(arr, self.__gshape, self.__dtype, axis, self.__device, self.__comm)

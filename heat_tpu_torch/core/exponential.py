@@ -51,3 +51,12 @@ def log1p(x, out=None):
 def sqrt(x, out=None):
     """Square root."""
     return _operations.__local_op(torch.sqrt, x, out)
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {"elementwise": ("exp", "expm1", "exp2", "log", "log2", "log10", "log1p", "sqrt")},
+)

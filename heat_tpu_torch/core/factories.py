@@ -408,3 +408,18 @@ def logspace(
     garr = torch.pow(float(base), y.larray.to(torch.float64)).to(torch.float32)
     result = DNDarray(garr, y.gshape, types.float32, y.split, y.device, y.comm)
     return result if dtype is None else result.astype(types.canonical_heat_type(dtype))
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {
+        "factory": (
+            "array", "arange", "empty", "zeros", "ones", "full", "eye",
+            "linspace", "logspace",
+        ),
+        "factory_like": ("empty_like", "zeros_like", "ones_like", "full_like"),
+    },
+)

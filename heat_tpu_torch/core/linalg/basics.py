@@ -30,7 +30,8 @@ import torch
 from .. import types
 from .._compile import jitted
 from .._operations import _out
-from .._tracing import record_dispatch
+from .._tracing import in_trace, record_dispatch
+from ...telemetry import _core as _tel
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_axis, sanitize_in
 
@@ -144,6 +145,41 @@ def _result_split_matmul(a: DNDarray, b: DNDarray, out_ndim: int) -> Optional[in
     return None
 
 
+def _grid_dispatch(op: str, model, overlapped: bool, launch, **span):
+    """``launch()``, one grid call, as the reference dispatches its grid
+    programs (``basics.py:415-430``, ``qr.py:636-676``, ``svd.py:350-385``):
+    with telemetry on, the byte ledger credited under ``op`` from
+    ``model()`` (a wire model of :mod:`heat_tpu_torch.comm._costs`), a
+    ``comm:<op>`` span with ``span``'s fields and the ``<op>`` dispatch
+    span pair."""
+    from ...comm.overlap import timed_dispatch
+
+    if _tel.enabled:
+        wm = model()
+        _tel.account_bytes(op, "f32", wm["exact_wire_bytes"], wm["wire_bytes"])
+        with _tel.span(f"comm:{op}", **span):
+            return timed_dispatch(op, overlapped, launch)
+    return timed_dispatch(op, overlapped, launch)
+
+
+def _summa_grid(a: DNDarray, b: DNDarray, layout: str, product):
+    """``product()``, the grid SUMMA of ``a @ b`` in ``layout``: one
+    program, credited from :func:`~heat_tpu_torch.comm._costs.summa_grid_model`."""
+    from ...comm import _costs
+    from ...comm.overlap import overlap_enabled
+
+    r, c = a.comm.mesh_shape
+    ov = overlap_enabled(r * c) if layout != "rowcol" else False
+    if in_trace():
+        return product()
+    record_dispatch()  # the grid SUMMA is one program (reference basics.py:422)
+    return _grid_dispatch(
+        "summa2d",
+        lambda: _costs.summa_grid_model(a.shape[0], a.shape[1], b.shape[1], (r, c), overlap=ov, layout=layout),
+        ov, product, mesh=f"{r}x{c}", panels=r * c, layout=layout,
+    )
+
+
 def matmul(
     a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, precision: Optional[str] = None
 ) -> DNDarray:
@@ -172,10 +208,12 @@ def matmul(
     promoted = types.promote_types(a.dtype, b.dtype)
     dtype = promoted.torch_type()
     grid = _grid_layout(a, b)
-    if grid:
-        record_dispatch()  # the grid SUMMA is one program (reference basics.py:422)
-    with _matmul_precision(precision):
-        garr = _mm(a.larray.to(dtype), b.larray.to(dtype))
+
+    def product():
+        with _matmul_precision(precision):
+            return _mm(a.larray.to(dtype), b.larray.to(dtype))
+
+    garr = _summa_grid(a, b, grid, product) if grid else product()
     split = (0, 1) if grid else _result_split_matmul(a, b, garr.ndim)
     return _out(out, DNDarray(garr, tuple(garr.shape), promoted, split, a.device, a.comm))
 
@@ -289,3 +327,16 @@ def tril(m: DNDarray, k: int = 0) -> DNDarray:
 def triu(m: DNDarray, k: int = 0) -> DNDarray:
     """Upper-triangular part (on and above diagonal ``k``)."""
     return __tri_op(m, k, torch.triu)
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from .._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {
+        "matmul": ("matmul", "dot"),
+        "transpose": ("transpose",),
+        "elementwise": ("tril", "triu"),
+    },
+)

@@ -34,11 +34,13 @@ import numpy as np
 import torch
 
 from .. import types
-from ...comm._costs import grid_panel_bounds
+from ...comm._costs import grid_panel_bounds, grid_qr_model
+from ...comm.overlap import overlap_enabled
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
 from .._compile import jitted
-from .basics import _matmul_precision
+from .basics import _grid_dispatch, _matmul_precision
+from .._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["QR", "qr"]
 
@@ -199,10 +201,15 @@ def _grid_qr(a: DNDarray, dtype, tiles_per_proc: int, calc_q: bool) -> QR:
             f"tiles_per_proc"
         )
     buf = a._zeroed_buffer().to(dtype.torch_type())
+    ov = overlap_enabled(len(bounds))
     with _matmul_precision():
         fn = jitted(("qr.grid", comm, bounds, vcs, tuple(buf.shape), str(buf.dtype)),
                     lambda: _caqr_blocks)
-        q_blk, r_blk = fn(comm.blocks(buf, (0, 1)), bounds, vcs)
+        q_blk, r_blk = _grid_dispatch(
+            "qr2d", lambda: grid_qr_model(m, n, (r, c), tiles_per_proc=int(tiles_per_proc), overlap=ov),
+            ov, lambda: fn(comm.blocks(buf, (0, 1)), bounds, vcs),
+            mesh=f"{r}x{c}", panels=len(bounds), overlap=ov,
+        )
     R = DNDarray(r_blk[:, :n].transpose(0, 1).reshape(n, c * nloc), (n, n), dtype, (None, 1), a.device, comm)
     if not calc_q:
         return QR(None, R)
@@ -211,6 +218,7 @@ def _grid_qr(a: DNDarray, dtype, tiles_per_proc: int, calc_q: bool) -> QR:
     return QR(DNDarray(q, (m, n), dtype, (0, 1), a.device, comm), R)
 
 
+@_split_semantics("entry_qr")
 def qr(a: DNDarray, tiles_per_proc: int = 1, calc_q: bool = True, overwrite_a: bool = False) -> QR:
     """Reduced QR factorization ``a = Q @ R`` of a 2-D DNDarray.
 

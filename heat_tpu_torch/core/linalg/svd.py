@@ -26,12 +26,15 @@ import numpy as np
 import torch
 
 from .. import types
+from ...comm._costs import qdwh_svd_model
+from ...comm.overlap import overlap_enabled
 from .._compile import jitted
 from ..dndarray import DNDarray
 from ..sanitation import sanitize_in
-from .basics import _matmul_precision
+from .basics import _grid_dispatch, _matmul_precision
 from .qr import _caqr_blocks, _grid_panel_schedule, _index_sum
 from .qr import qr as _qr
+from .._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["SVD", "svd"]
 
@@ -253,7 +256,13 @@ def _grid_svd(a: DNDarray, dtype, compute_uv: bool):
         a = a.resplit((0, 1))
     fn = jitted(("svd.grid", comm, tuple(a._buffer.shape), str(a._buffer.dtype)),
                 lambda: _grid_svd_parts)
-    u, s, v, _ = fn(a, dtype, compute_uv)
+    r, c = comm.mesh_shape
+    ov = overlap_enabled(c)
+    # credited at the iteration cap, as the reference's grid SVD is
+    u, s, v, _ = _grid_dispatch(
+        "svd2d", lambda: qdwh_svd_model(m, n, (r, c), iterations=_QDWH_MAXIT),
+        ov, lambda: fn(a, dtype, compute_uv), mesh=f"{r}x{c}", iterations=_QDWH_MAXIT, overlap=ov,
+    )
     S = DNDarray(s, (n,), dtype, None, device, comm)
     if not compute_uv:
         return S
@@ -262,6 +271,7 @@ def _grid_svd(a: DNDarray, dtype, compute_uv: bool):
     return SVD(U, S, DNDarray(v, (n, n), dtype, None, device, comm))
 
 
+@_split_semantics("entry_svd")
 def svd(a: DNDarray, full_matrices: bool = False, compute_uv: bool = True):
     """Reduced SVD ``a = U @ diag(S) @ V.T``: ``SVD(U, S, V)``, or only
     ``S`` (a DNDarray) with ``compute_uv=False``.  On a 2-D position grid

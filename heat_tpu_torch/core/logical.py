@@ -104,3 +104,18 @@ def logical_xor(t1, t2):
 def logical_not(t, out=None):
     """Elementwise logical not."""
     return _operations.__local_op(torch.logical_not, t, out, no_cast=True)
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {
+        "reduction": ("all", "any"),
+        "binary": ("isclose", "logical_and", "logical_or", "logical_xor"),
+        "elementwise": (
+            "isfinite", "isinf", "isnan", "isneginf", "isposinf", "logical_not",
+        ),
+    },
+)

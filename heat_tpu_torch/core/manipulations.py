@@ -299,12 +299,12 @@ def resplit(arr: DNDarray, axis=None) -> DNDarray:
         else:
             if splits == arr.splits:
                 return DNDarray(arr._buffer, arr.shape, arr.dtype, splits, arr.device, comm)
-            garr = comm.commit_split(arr.larray, splits)
+            garr = comm.commit_split(arr.larray, splits, src=arr.splits)
             return DNDarray(garr, arr.shape, arr.dtype, splits, arr.device, comm)
     axis = sanitize_axis(arr.shape, axis)
     if axis == arr.split:
         return DNDarray(arr._buffer, arr.shape, arr.dtype, axis, arr.device, arr.comm)
-    garr = arr.comm.commit_split(arr.larray, axis)
+    garr = arr.comm.commit_split(arr.larray, axis, src=arr.split)
     return DNDarray(garr, arr.shape, arr.dtype, axis, arr.device, arr.comm)
 
 
@@ -738,3 +738,21 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
         out[1]._rebind(indices)
         return out
     return values, indices
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {
+        "concat": ("concatenate", "hstack", "vstack", "row_stack", "column_stack"),
+        "stack": ("stack",),
+        "expand_dims": ("expand_dims",),
+        "squeeze": ("squeeze",),
+        "flatten": ("flatten", "ravel"),
+        "reshape": ("reshape",),
+        "resplit": ("resplit", "resplit_"),
+        "elementwise": ("flip", "fliplr", "flipud"),
+    },
+)

@@ -49,3 +49,12 @@ def lt(t1, t2):
 def ne(t1, t2):
     """Elementwise !=."""
     return _operations.__binary_op(torch.ne, t1, t2)
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {"binary": ("eq", "ge", "gt", "le", "lt", "ne")},
+)

@@ -80,3 +80,12 @@ def sign(x, out=None):
 def trunc(x, out=None):
     """Truncate toward zero."""
     return _operations.__local_op(torch.trunc, x, out)
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {"elementwise": ("abs", "fabs", "ceil", "floor", "round", "sign", "trunc")},
+)

@@ -14,6 +14,7 @@ from typing import Any, List, Optional, Sequence, Union
 import numpy as np
 
 from .stride_tricks import sanitize_axis  # noqa: F401 -- one definition
+from ._split_semantics import split_semantics as _split_semantics
 
 __all__ = [
     "merge_keepdims",
@@ -55,6 +56,7 @@ def sanitize_in(x: Any) -> None:
         raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
 
 
+@_split_semantics("entry_split0")
 def sanitize_predict_in(x: Any, n_features: Optional[int] = None, op: str = "predict"):
     """The input gate of every predict path: a 2-D DNDarray (with exactly
     ``n_features`` columns when given).  Replicated and row-split inputs

@@ -561,3 +561,18 @@ def _jnp_quantile(a: torch.Tensor, q: torch.Tensor, axis, method: str, keepdims:
     if out_keep is not None:
         res = res.reshape(tuple(q.shape) + out_keep)
     return res.to(a.dtype)
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {
+        "reduction": (
+            "argmax", "argmin", "max", "mean", "median", "min", "std",
+            "var", "kurtosis", "skew",
+        ),
+        "binary": ("maximum", "minimum"),
+    },
+)

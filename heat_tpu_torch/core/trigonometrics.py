@@ -85,3 +85,18 @@ def tanh(x, out=None):
 
 acos, asin, atan, atan2 = arccos, arcsin, arctan, arctan2
 radians, degrees = deg2rad, rad2deg
+
+
+# split semantics (see core/_split_semantics.py); the table stays a literal dict
+from ._split_semantics import declare_split_semantics_table  # noqa: E402
+
+declare_split_semantics_table(
+    __name__,
+    {
+        "elementwise": (
+            "arccos", "arcsin", "arctan", "cos", "cosh", "deg2rad",
+            "rad2deg", "sin", "sinh", "tan", "tanh",
+        ),
+        "binary": ("arctan2",),
+    },
+)

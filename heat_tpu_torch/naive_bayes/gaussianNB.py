@@ -25,6 +25,7 @@ from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray
 from ..core.fuse import fuse
 from ..core.sanitation import sanitize_in, sanitize_predict_in
+from ..core._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["GaussianNB"]
 
@@ -103,6 +104,7 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
         nb.epsilon_ = state.get("epsilon_")
         return nb
 
+    @_split_semantics("entry_fit")
     def fit(self, x: DNDarray, y: DNDarray, sample_weight=None) -> "GaussianNB":
         """Fit from scratch on ``x`` (n, f) and labels ``y`` (n,)."""
         self.classes_ = None
@@ -227,18 +229,21 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
         return tuple(np.asarray(a, dtype=np.float64)
                      for a in (self.theta_, self.sigma_, self.class_prior_))
 
+    @_split_semantics("entry_split0")
     def predict(self, x: DNDarray) -> DNDarray:
         """The class of largest posterior for each row, one fused program."""
         theta, sigma, prior = self._fit_params()
         x = sanitize_predict_in(x, n_features=theta.shape[1], op="GaussianNB.predict")
         return _fused_nb_predict(x, theta, sigma, prior, np.asarray(self.classes_))
 
+    @_split_semantics("entry_split0")
     def predict_log_proba(self, x: DNDarray) -> DNDarray:
         """Normalized log posteriors, float32, one fused program."""
         theta, sigma, prior = self._fit_params()
         x = sanitize_predict_in(x, n_features=theta.shape[1], op="GaussianNB.predict_log_proba")
         return _fused_nb_log_proba(x, theta, sigma, prior)
 
+    @_split_semantics("entry_split0")
     def predict_proba(self, x: DNDarray) -> DNDarray:
         """Posterior probabilities, float32, one fused program."""
         theta, sigma, prior = self._fit_params()

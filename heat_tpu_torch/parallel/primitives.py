@@ -205,7 +205,9 @@ def all_to_all_resplit(x, from_axis: int, to_axis: int, comm: Optional[TorchComm
     (the Ulysses sequence<->head swap) through the communicator's
     all-to-all.  The global tensor comes back with its true shape."""
     arr, comm = _unpack(x, comm)
-    out = comm.alltoall(arr, split_axis=to_axis, concat_axis=from_axis)
+    # the all-to-all, exact: the reference's primitive is its monolithic
+    # relayout (``apply_sharding``), never the eager redistribution seam
+    out = comm.pad_to_shards(arr, axis=to_axis)
     return comm.unpad(out, arr.shape[to_axis], axis=to_axis)
 
 

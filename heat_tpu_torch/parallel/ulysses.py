@@ -4,9 +4,9 @@ Port of ``heat_tpu/parallel/ulysses.py`` on the positions model.  The
 input arrives split over the sequence; an all-to-all moves the split from
 the sequence to the heads, every position computes full-sequence
 attention for its own heads with no communication, and a second
-all-to-all moves the split back.  Here the swap is the communicator's
-:meth:`~heat_tpu_torch.TorchCommunication.alltoall` (an identity on the
-global tensor), and every position's heads run through ONE
+all-to-all moves the split back.  Here each swap pads the new split axis
+of the global tensor (the exchange is an identity on it), and every
+position's heads run through ONE
 :func:`flash_attention` call whose grid covers all of them.
 """
 
@@ -89,10 +89,13 @@ def ulysses_attention(
 def _ulysses(q, k, v, causal: bool, comm, use_flash: bool) -> torch.Tensor:
     """The two all-to-alls around the per-position attention."""
     # sequence -> heads: each position now holds the full sequence of H/p heads
-    qh, kh, vh = (comm.alltoall(t, split_axis=2, concat_axis=1) for t in (q, k, v))
+    # exact: the reference's swap runs inside its compiled program, never
+    # at the eager redistribution seam; the global tensor already holds
+    # every shard, so the all-to-all pads the new split axis
+    qh, kh, vh = (comm.pad_to_shards(t, axis=2) for t in (q, k, v))
     if use_flash:
         out = flash_attention(qh, kh, vh, causal=causal)
     else:
         out = _dense_attention(qh, kh, vh, causal)
     # heads -> sequence, the caller's layout
-    return comm.alltoall(out, split_axis=1, concat_axis=2)
+    return comm.pad_to_shards(out, axis=1)

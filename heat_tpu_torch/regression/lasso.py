@@ -45,6 +45,7 @@ from ..core.dndarray import DNDarray
 from ..core.fuse import fuse
 from ..core.sanitation import sanitize_in, sanitize_predict_in
 from ..telemetry import _core as _tel
+from ..core._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["Lasso"]
 
@@ -175,6 +176,7 @@ class Lasso(RegressionMixin, BaseEstimator):
         est.n_iter = None if n_iter is None else int(n_iter)
         return est
 
+    @_split_semantics("entry_fit")
     def fit(self, x, y, resume=False, comm=None, device=None) -> "Lasso":
         """Fit on ``x`` (``(n, f)``) and ``y`` (``(n,)`` or ``(n, 1)``).
 
@@ -444,6 +446,7 @@ class Lasso(RegressionMixin, BaseEstimator):
         self.__theta = DNDarray(theta.reshape(-1, 1), (m, 1), types.float32, None, device, comm)
         return self
 
+    @_split_semantics("entry_split0")
     def predict(self, x: DNDarray) -> DNDarray:
         """``y = theta_0 + x @ theta_1:``, ``(n, 1)``, row-split when ``x``
         is."""

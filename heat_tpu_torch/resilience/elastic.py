@@ -109,9 +109,11 @@ def migrate_state(
     ``meta["splits"]`` (written by :class:`~heat_tpu_torch.resilience.
     resume.LoopCheckpointer`) names each entry's partitioning; entries
     marked ``"mesh"`` are re-chunked by :func:`migrate_stacked`, everything
-    else (replicated) passes through untouched.  The migrated entries stay
-    host arrays: the resumed fit moves its carry onto its own device.
-    ``comm`` is accepted for the reference's signature.
+    else (replicated) passes through untouched.  When ``comm`` has more
+    than one position, each migrated entry is laid out at split 0 through
+    the planned redistribution, as in the reference (one dispatch, counted
+    on ``comm.resplit.planned``; the plan is an exact slice).  The entries
+    stay host arrays: the resumed fit moves its carry onto its own device.
     """
     new_mesh = int(new_mesh)
     splits = meta.get("splits") or {}
@@ -123,7 +125,16 @@ def migrate_state(
         arr = np.asarray(out[name])
         if arr.ndim == 0 or int(arr.shape[0]) != old_mesh:
             continue  # not actually stacked per-rank; leave it alone
-        out[name] = migrate_stacked(arr, new_mesh)
+        migrated = migrate_stacked(arr, new_mesh)
+        if comm is not None and getattr(comm, "size", 1) > 1:
+            import torch
+
+            from ..comm import redistribution
+
+            with redistribution("planned"):
+                placed = comm.resplit(torch.from_numpy(np.ascontiguousarray(migrated)), 0)
+            migrated = comm.unpad(placed, migrated.shape[0]).numpy()
+        out[name] = migrated
         growing = new_mesh > old_mesh
         incidents.record(
             kind="mesh-grow" if growing else "mesh-shrink",

@@ -17,6 +17,7 @@ from ..core import types
 from ..core._compile import jitted
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
+from ..core._split_semantics import split_semantics as _split_semantics
 
 __all__ = ["cdist", "manhattan", "quadratic_d2", "rbf"]
 
@@ -72,6 +73,7 @@ def _manhattan(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
     return torch.cdist(xa, ya, p=1.0)
 
 
+@_split_semantics("entry_split0")
 def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
     """Pairwise euclidean distances between the rows of ``X`` and ``Y``
     (``Y = X`` when omitted)."""

@@ -1236,3 +1236,76 @@ def test_fused_predicts_over_many_batch_sizes_keep_memory_bounded(cuda_device):
     finally:
         htt.fuse.set_cache_limit(prev)
         htt.fuse.clear_cache()
+
+
+# --------------------------------------------------------------------- #
+# planned redistribution                                                 #
+# --------------------------------------------------------------------- #
+def _resplit_on(devices, data, src, dst, mesh=None):
+    comm = htt.TorchCommunication(devices) if mesh is None else htt.grid_comm(mesh, devices)
+    x = htt.array(data, split=src, comm=comm) if mesh is None else htt.array(data, splits=src, comm=comm)
+    return htt.resplit(x, dst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,src,dst,mesh,want", [
+    (4, 0, 1, None, [1, 1]), (8, 1, 0, None, [1, 1]), (7, 0, 1, None, [1, 1]),
+    (4, (0, 1), (1, 0), (2, 2), [2, 2]), (8, (0, None), (None, 0), (2, 4), [1, 1]),
+])
+def test_planned_int8_resplit_on_card_bitwise_its_cpu_plain_run(cuda_device, p, src, dst, mesh, want):
+    """Under int8_block the planned resplit on the card launches B1 and B2
+    once for each compressed split -> split stage, and its result equals
+    the port's CPU run (the plain versions) bit for bit."""
+    ragged = src == 0 or src == (0, None)  # a ragged destination axis pads; a source must divide
+    data = np.random.default_rng(p).standard_normal((64 * p, 48 * p + 5 * ragged)).astype(np.float32)
+    counted = (tcq.quantize_blocks, tcq.dequantize_blocks)
+    with tcq.collective_precision("int8_block"):
+        for f in counted:
+            f.launches = 0
+        got = _resplit_on([cuda_device] * p, data, src, dst, mesh)
+        launches = [f.launches for f in counted]
+        plain = _resplit_on(["cpu"] * p, data, src, dst, mesh)
+    assert launches == want
+    assert _bitwise(got._buffer.cpu(), plain._buffer)
+    assert not np.array_equal(got.numpy(), data)
+
+
+@pytest.mark.gpu
+def test_exact_planned_resplit_on_card_is_the_input(cuda_device):
+    data = np.random.default_rng(1).standard_normal((64, 300)).astype(np.float32)
+    counted = (tcq.quantize_blocks, tcq.dequantize_blocks)
+    for f in counted:
+        f.launches = 0
+    got = _resplit_on([cuda_device] * 4, data, 0, 1)
+    assert [f.launches for f in counted] == [0, 0]
+    assert got.split == 1 and np.array_equal(got.numpy(), data)
+
+
+def _fused_resplit(a):
+    return htt.resplit(a, 1) * 2.0
+
+
+@pytest.mark.gpu
+def test_policy_flip_recaptures_a_fused_resplit(cuda_device):
+    """A fused program that resplits is captured once and replayed; a flip
+    of the redistribution policy keys a new capture; inside the capture
+    the resplit is exact (no plan, no kernel) even under int8_block."""
+    from heat_tpu_torch.comm import redistribute as trd
+
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    data = np.random.default_rng(2).standard_normal((64, 512)).astype(np.float32)
+    x = htt.array(data, split=0, comm=comm)
+    htt.fuse.clear_cache()
+    fused = htt.fuse(_fused_resplit)
+    with tcq.collective_precision("int8_block"):
+        tcq.quantize_blocks.launches = 0
+        first = fused(x)
+        size = htt.fuse.cache_size()
+        again = fused(x)
+        assert htt.fuse.cache_size() == size
+        with trd.redistribution("monolithic"):
+            flipped = fused(x)
+            assert htt.fuse.cache_size() == size + 1
+        assert tcq.quantize_blocks.launches == 0
+    for out in (first, again, flipped):
+        assert np.array_equal(out.numpy(), data * 2.0)

@@ -356,21 +356,36 @@ def tels_port():
 # key contexts                                                            #
 # --------------------------------------------------------------------- #
 def test_key_context_tokens_equal_the_references(port):
-    """The three providers the port has today give the reference's tokens
-    under the same settings (the overlap and redistribution tokens come
-    with A15a)."""
+    """The five providers (collective precision, guard, prefetch,
+    redistribution, overlap) give the reference's tokens under the same
+    settings."""
+    import importlib
+
+    from heat_tpu.comm import redistribute as rrd
+    from heat_tpu_torch.comm import redistribute as trd
+
+    rov = importlib.import_module("heat_tpu.comm.overlap")
+    tov = importlib.import_module("heat_tpu_torch.comm.overlap")
     pairs = [(cq._policy_token, rcq._policy_token), (guards._guard_token, rguards._guard_token),
-             (pstream._prefetch_token, rstream._prefetch_token)]
+             (pstream._prefetch_token, rstream._prefetch_token), (trd._redist_token, rrd._redist_token),
+             (tov._overlap_token, rov._overlap_token)]
     rprec, rpol, rpre = rcq.get_collective_precision(), rguards.get_guard_policy(), rstream.get_prefetch()
+    saved = [(trd, trd.get_redistribution()), (rrd, rrd.get_redistribution())]
+    saved_ov = [(tov, tov.get_overlap()), (rov, rov.get_overlap())]
     try:
-        for prec, pol, pre in [("f32", "off", "auto"), ("int8_block", "degrade", "on"),
-                               ("bf16", "raise", "off")]:
+        for prec, pol, pre, red, ov in [("f32", "off", "auto", "auto", "auto"),
+                                        ("int8_block", "degrade", "on", "planned", "on"),
+                                        ("bf16", "raise", "off", "monolithic", "off")]:
             for mod in (cq, rcq):
                 mod.set_collective_precision(prec)
             for mod in (guards, rguards):
                 mod.set_guard_policy(pol)
             for mod in (pstream, rstream):
                 mod.set_prefetch(pre)
+            for mod in (trd, rrd):
+                mod.set_redistribution(red)
+            for mod in (tov, rov):
+                mod.set_overlap(ov)
             for mine, ref in pairs:
                 assert mine() == ref()
             for mine, _ in pairs:
@@ -379,6 +394,10 @@ def test_key_context_tokens_equal_the_references(port):
         rcq.set_collective_precision(rprec)
         rguards.set_guard_policy(rpol)
         rstream.set_prefetch(rpre)
+        for mod, red in saved:
+            mod.set_redistribution(red)
+        for mod, ov in saved_ov:
+            mod.set_overlap(ov)
 
 
 def test_policy_flip_keys_a_fresh_entry(port, tels_port):

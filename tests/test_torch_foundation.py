@@ -54,7 +54,7 @@ PORTED_MODULES = [
     "arithmetics", "factories", "indexing", "printing", "dndarray", "_operations", "base",
     "exponential", "logical", "relational", "rounding", "statistics", "trigonometrics", "random",
     "linalg.basics", "linalg.qr", "linalg.svd", "linalg.solver", "manipulations", "tiling",
-    "io", "checkpoint", "_tracing", "_compile", "fuse", "aot",
+    "io", "checkpoint", "_tracing", "_compile", "fuse", "aot", "_split_semantics",
 ]
 
 
@@ -65,6 +65,7 @@ BASE_MODULES = [
     "telemetry.export", "telemetry.httpz", "net._base", "resilience", "resilience.faults",
     "resilience.guards", "resilience.incidents", "resilience.retry", "resilience.fixtures",
     "resilience.resume", "resilience.elastic", "io", "io.stream", "datasets", "obs", "native",
+    "comm", "comm._costs", "comm.overlap", "comm.redistribute",
 ]
 
 

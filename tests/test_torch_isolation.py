@@ -59,7 +59,8 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.core.manipulations", "heat_tpu_torch.core.statistics",
         "heat_tpu_torch.core.tiling", "heat_tpu_torch.parallel.sort", "heat_tpu_torch.parallel.take",
         "heat_tpu_torch.utils", "heat_tpu_torch.utils.matrixgallery", "heat_tpu_torch.utils.profiler",
-        "heat_tpu_torch.comm._costs", "heat_tpu_torch.comm.overlap",
+        "heat_tpu_torch.comm._costs", "heat_tpu_torch.comm.overlap", "heat_tpu_torch.comm.redistribute",
+        "heat_tpu_torch.comm", "heat_tpu_torch.core._split_semantics",
         "heat_tpu_torch.telemetry", "heat_tpu_torch.telemetry._core", "heat_tpu_torch.telemetry.hist",
         "heat_tpu_torch.telemetry.flight", "heat_tpu_torch.telemetry.slo", "heat_tpu_torch.telemetry.export",
         "heat_tpu_torch.telemetry.httpz", "heat_tpu_torch.net", "heat_tpu_torch.net._base",
