@@ -268,6 +268,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    allocation beside ``Plan.peak_live_bytes``, and the rate of a roll of
    the stacked ``(4, ...)`` blobs by one position (the port's move between
    positions: ``comm/_costs.py``'s ``DEFAULT_ICI_GBPS``); ``phase15_s``.
+16. in-process serving (``heat_tpu_torch.serve``) as the reference
+   benchmark runs it (bench.py:2255-2293): KMeans (k=8, 3 steps,
+   ``random_state`` 0) fit on the blobs' first 20 000 rows and served by
+   ``ServeEngine(max_batch_rows=64, min_bucket=8)`` from an in-memory
+   stand-in of the model registry (``MemoryRegistry``: the card machine
+   has no ``h5py`` for checkpoint files); 32 warm-up requests, then 7
+   seeded runs of 512 requests, the unbatched direct twin on the first,
+   then the obs twin (bench.py:2299-2322: telemetry on, an SLO monitor
+   that never burns) on the same schedules.  The counts are set to 0
+   before the main path and read after (no kernel of B1-B4 serves a
+   predict: 0 each).  The phase fails unless every served reply is
+   bitwise its direct twin and ``dispatches_per_batch`` is 1.0.  It
+   prints ``serve_predictions_per_sec`` and ``serve_p99_ms`` (median and
+   interquartile spread), ``dispatches_per_batch``, the batch occupancy,
+   ``wire_bytes_per_row``, ``direct_bitwise_equal`` and
+   ``obs_overhead_p99``.  Then each of the four fused predicts (KNN on
+   phase 8's 20 000 rows with k=5, GaussianNB on the blob labels, Lasso
+   on ``bench.py``'s target, the KMeans) is exported with
+   ``export_warm``, its fuse cache cleared, and installed by a fresh
+   engine's ``warm``: the cold latency (install plus the first request
+   of 5 rows, which must build nothing) and the warm one (a replay); and
+   phase 8's ``knn_predict_ms`` beside the eager float ``topk`` formula it
+   replaced, timed in the same run.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -357,6 +380,14 @@ RITZ_TOL = 1e-4
 #: KMedians/KMedoids fits: the benchmark's steps (medians_medoids_rates)
 MED_STEPS = 30
 KNN_K = 5
+#: phase 16: the reference benchmark's serving run (bench.py:2255-2293):
+#: KMeans fit rows, the engine's batch cap and bucket floor, warm-up
+#: requests, requests a run and runs; the cold/warm request's rows (the
+#: loadgen's mean), replays timed, Lasso's cd sweeps (a predict's time
+#: does not depend on the fit)
+SERVE_FIT_ROWS, SERVE_MAX_BATCH, SERVE_MIN_BUCKET = 20_000, 64, 8
+SERVE_WARMUP, SERVE_REQUESTS, SERVE_RUNS = 32, 512, 7
+SERVE_REQUEST_ROWS, SERVE_WARM_REPS, SERVE_LASSO_SWEEPS = 5, 20, 10
 #: phase 9: float32's unit roundoff, the halo width, the identity's order
 U32 = 2.0 ** -24
 HALO = 2
@@ -1444,6 +1475,16 @@ def knn_replay(train: np.ndarray, labels: np.ndarray, query: np.ndarray, k: int,
     return pred, tie
 
 
+def knn_unfused(torch, knn, Q):
+    """KNN's predict before it was fused (eager ops) and before it took
+    the reference's tie order (``torch.topk`` of the float distances)."""
+    from heat_tpu_torch.spatial.distance import quadratic_d2
+
+    d2 = quadratic_d2(Q.larray, knn.x.larray)
+    idx = torch.topk(d2, knn.num_neighbours, dim=1, largest=False).indices
+    return torch.argmax(torch.sum(knn.y.larray.to(torch.float32)[idx], dim=1), dim=1)
+
+
 def phase_rng(torch, htt, dev):
     """Phase 8, first part: the draws on the card at 1 and POSITIONS
     positions against the port's CPU draws of the same seed and counter,
@@ -1743,9 +1784,15 @@ def phase_spectral_nb_knn(torch, htt, cq, dev, data, counted):
     check(not bool((off & ~tie).any()), f"KNN: {int((off & ~tie).sum())} labels differ from numpy off ties")
     metrics["knn_predict_ms"] = wall_ms(lambda: knn.predict(Q))
     metrics["knn_predict_device_ms"] = device_ms(lambda: knn.predict(Q), [()], per_graph=4, trials=5)
+    # the predict as it ran before it was fused and took the reference's
+    # tie order: eager ops, torch.topk over the float distances
+    metrics["knn_predict_before_ms"] = wall_ms(lambda: knn_unfused(torch, knn, Q))
     print(f"KNN {SUB} x {SUB}, k={KNN_K}: labels equal numpy's on every row but {int(off.sum())} "
           f"({int(tie.sum())} rows with a distance tie at the k-th neighbour); predict "
-          f"{metrics['knn_predict_ms']:.2f} ms ({metrics['knn_predict_device_ms']:.2f} ms of device time)")
+          f"{metrics['knn_predict_ms']:.2f} ms ({metrics['knn_predict_device_ms']:.2f} ms of device time), "
+          f"the unfused float topk of before {metrics['knn_predict_before_ms']:.2f} ms")
+    # the 20 000-square program's graph pool holds its temporaries
+    htt.fuse.clear_cache()
 
     # an int64 2048^3 product (exact in float64: |a|, |b| < 1000)
     rng = np.random.default_rng(3)
@@ -3685,6 +3732,213 @@ def phase_redistribute(torch, htt, cq, dev, data, counted, card):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------- #
+# in-process serving (phase 16)                                          #
+# ---------------------------------------------------------------------- #
+def summary(values):
+    """``(median, interquartile spread as % of the median)``, as the
+    reference benchmark summarizes its runs (bench.py ``_summary``);
+    the spread is None below 3 values."""
+    values = sorted(values)
+    n = len(values)
+    med = values[n // 2]
+    if n < 3 or not med:
+        return med, None
+    q1, q3 = values[int(0.25 * (n - 1))], values[int(0.75 * (n - 1))]
+    return med, abs(100.0 * (q3 - q1) / med)
+
+
+def same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+class MemoryRegistry:
+    """The engine's registry interface over fitted estimators held in
+    memory: ``publish``, ``versions``, ``resolve``, ``load`` and the
+    executable sidecars.  ``serve.ModelRegistry`` keeps HDF5 checkpoints,
+    and the card machine has no ``h5py``."""
+
+    def __init__(self):
+        self.models, self.sidecars = {}, {}
+
+    def publish(self, tenant, model, est):
+        versions = self.models.setdefault((tenant, model), [])
+        versions.append(est)
+        return len(versions)
+
+    def versions(self, tenant, model):
+        return list(range(1, len(self.models.get((tenant, model), ())) + 1))
+
+    def resolve(self, tenant, model, version=None):
+        versions = self.versions(tenant, model)
+        check(bool(versions), f"phase 16: nothing published for {tenant}/{model}")
+        version = versions[-1] if version is None else int(version)
+        check(version in versions, f"phase 16: {tenant}/{model} has no version {version}")
+        return version, f"<memory>/{tenant}/{model}/v{version}"
+
+    def load(self, tenant, model, version=None):
+        version, _ = self.resolve(tenant, model, version)
+        return self.models[(tenant, model)][version - 1], version
+
+    def publish_executables(self, tenant, model, version, bundles):
+        self.sidecars[(tenant, model, int(version))] = list(bundles)
+
+    def load_executables(self, tenant, model, version=None, *, policy=None):
+        version, _ = self.resolve(tenant, model, version)
+        return self.sidecars.get((tenant, model, version), []), version
+
+
+def phase_serving(torch, htt, dev, data, counted, card, knn_ms, knn_before_ms):
+    """Phase 16 (see the module docstring).  Returns ``(launches,
+    metrics)``."""
+    from heat_tpu_torch import telemetry
+    from heat_tpu_torch.serve import ServeEngine, loadgen
+
+    fa = __import__("importlib").import_module("heat_tpu_torch.parallel.flash_attention")
+    kernels = list(counted) + [fa.flash_attention, fa.flash_attention_partial]
+    metrics = {}
+    comm1 = htt.TorchCommunication([dev])
+    htt.fuse.clear_cache()
+
+    # the main path: the reference benchmark's serving run
+    # (bench.py:2255-2293), the counts set to 0 just before it
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    km = htt.cluster.KMeans(n_clusters=K, max_iter=3, random_state=0)
+    km.fit(htt.array(data[:SERVE_FIT_ROWS], split=0, comm=comm1))
+    reg = MemoryRegistry()
+    reg.publish("bench", "km", km)
+    eng = ServeEngine(reg, max_batch_rows=SERVE_MAX_BATCH, min_bucket=SERVE_MIN_BUCKET)
+    loadgen.run(eng, "bench", "km", seed=0, n_requests=SERVE_WARMUP, twin=False)
+    reports, built = [], []
+    for s in range(SERVE_RUNS):
+        programs = htt.fuse.cache_size()
+        reports.append(loadgen.run(eng, "bench", "km", seed=s + 1, n_requests=SERVE_REQUESTS,
+                                   twin=(s == 0)))
+        built.append(htt.fuse.cache_size() - programs)  # the twin's shapes included
+    stats = eng.stats()
+    twin = reports[0].twin
+    # the obs twin (bench.py:2299-2322): telemetry on and an SLO monitor
+    # that never burns, on the same warm engine and schedules
+    telemetry.enable()
+    eng.slo = telemetry.SloMonitor("bench.serve", target_ms=1e9)
+    try:
+        obs = [loadgen.run(eng, "bench", "km", seed=s + 1, n_requests=SERVE_REQUESTS, twin=False)
+               for s in range(SERVE_RUNS)]
+        obs_counters = telemetry.snapshot()["counters"]
+    finally:
+        eng.slo = None
+        telemetry.disable()
+        telemetry.reset()
+    eng.close()
+    torch.cuda.synchronize()
+    launches = {f"blockquant_{f.__name__.removesuffix('_blocks')}": f.launches for f in counted}
+    launches.update({f.__name__: f.launches for f in kernels[len(counted):]})
+    metrics["phase16_main_s"] = time.perf_counter() - t0
+
+    pps, pps_spread = summary([r.predictions_per_sec for r in reports])
+    p99, p99_spread = summary([r.p99_ms for r in reports])
+    p99_obs, _ = summary([r.p99_ms for r in obs])
+    metrics.update({
+        "serve_predictions_per_sec": pps, "serve_predictions_per_sec_spread_pct": pps_spread,
+        "serve_p99_ms": p99, "serve_p99_ms_spread_pct": p99_spread,
+        "serve_predictions_per_sec_runs": [r.predictions_per_sec for r in reports],
+        "serve_p99_ms_runs": [r.p99_ms for r in reports],
+        "serve_programs_built_runs": built,
+        "dispatches_per_batch": stats["dispatches_per_batch"],
+        "batch_occupancy": stats["batch_occupancy"],
+        "wire_bytes_per_row": (stats["payload_bytes"] + stats["reply_bytes"]) / stats["rows"],
+        "direct_bitwise_equal": bool(twin["bitwise_equal"]),
+        "direct_compared": twin["compared"],
+        "direct_predictions_per_sec": twin["predictions_per_sec"],
+        "direct_p99_ms": twin["p99_ms"],
+        "obs_p99_ms": p99_obs,
+        "obs_overhead_p99": p99_obs / p99 if p99 else None,
+    })
+    check(metrics["direct_bitwise_equal"] and twin["compared"] == SERVE_REQUESTS,
+          f"phase 16: served replies != the direct twin, bitwise ({twin})")
+    check(stats["dispatches_per_batch"] == 1.0,
+          f"phase 16: dispatches_per_batch {stats['dispatches_per_batch']} != 1.0")
+    check(obs_counters.get("serve.batches", 0) == sum(r.batches for r in obs),
+          "phase 16: the obs twin's serve.batches counter")
+    check(all(r.dispatches_per_batch == 1.0 and not r.degraded for r in reports + obs),
+          "phase 16: a run with dispatches_per_batch != 1.0 or a degraded reply")
+    print(f"phase 16 serving, KMeans k={K} on {SERVE_FIT_ROWS} rows, {SERVE_RUNS} x {SERVE_REQUESTS} "
+          f"requests: serve_predictions_per_sec {pps:.1f} (spread {pps_spread}%), serve_p99_ms "
+          f"{p99:.4f} (spread {p99_spread}%); dispatches_per_batch {stats['dispatches_per_batch']}, "
+          f"batch_occupancy {stats['batch_occupancy']:.4f}, wire_bytes_per_row "
+          f"{metrics['wire_bytes_per_row']:.2f}, direct_bitwise_equal {metrics['direct_bitwise_equal']} "
+          f"({twin['compared']} compared; direct {twin['predictions_per_sec']:.1f} predictions/s, p99 "
+          f"{twin['p99_ms']:.4f} ms); obs_p99_ms {p99_obs:.4f}, obs_overhead_p99 "
+          f"{metrics['obs_overhead_p99']:.4f}; launches {launches} [{card}]")
+    print(f"phase 16 runs: predictions/s {[round(r.predictions_per_sec, 1) for r in reports]}, p99 ms "
+          f"{[round(r.p99_ms, 4) for r in reports]}, programs built {built}, batches "
+          f"{[r.batches for r in reports]}")
+
+    # each of the four fused predicts, cold (install + first request) and
+    # warm (replay), from a sidecar of AOT bundles
+    truth = np.repeat(np.arange(K), N // K)
+    sub, t_sub = data[::N // SUB], truth[::N // SUB]
+    X = htt.array(sub, split=0, comm=comm1)
+    y_lasso = lasso_target(data)[::N // SUB]
+    estimators = {
+        "knn": htt.classification.KNN(X, htt.array(t_sub, split=0, comm=comm1), KNN_K),
+        "gaussian_nb": htt.naive_bayes.GaussianNB().fit(X, htt.array(t_sub, split=0, comm=comm1)),
+        "lasso": htt.regression.Lasso(lam=LASSO_LAM, max_iter=SERVE_LASSO_SWEEPS).fit(
+            X, htt.array(y_lasso, split=0, comm=comm1)),
+        "kmeans": km,
+    }
+    request = np.random.default_rng(16).standard_normal((SERVE_REQUEST_ROWS, F)).astype(np.float32)
+    prev_comm = htt.core.communication._default_comm
+    htt.use_comm(comm1)  # GaussianNB's lane takes the default communicator
+    try:
+        for name, est in estimators.items():
+            reg.publish("bench", name, est)
+            e = ServeEngine(reg, max_batch_rows=SERVE_MAX_BATCH, min_bucket=SERVE_MIN_BUCKET)
+            bundles = e.export_warm("bench", name)
+            e.close()
+            reg.publish_executables("bench", name, reg.versions("bench", name)[-1], bundles)
+            htt.fuse.clear_cache()
+            e = ServeEngine(reg, max_batch_rows=SERVE_MAX_BATCH, min_bucket=SERVE_MIN_BUCKET)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            installed = e.warm("bench", name)
+            t1 = time.perf_counter()
+            programs = htt.fuse.cache_size()
+            first = e.predict("bench", name, request)
+            t2 = time.perf_counter()
+            check(installed == len(bundles) == len(e._buckets()),
+                  f"phase 16 {name}: installed {installed} of {len(bundles)} bundles")
+            check(htt.fuse.cache_size() == programs, f"phase 16 {name}: the first request built a program")
+            warm = []
+            for _ in range(SERVE_WARM_REPS):
+                ts = time.perf_counter()
+                reply = e.predict("bench", name, request)
+                warm.append((time.perf_counter() - ts) * 1e3)
+            direct = e.direct_predict("bench", name, request)
+            same = same_bytes(reply.value, direct)
+            check(same_bytes(reply.value, first.value), f"phase 16 {name}: a replay differs from the first reply")
+            check(e.stats()["dispatches_per_batch"] == 1.0, f"phase 16 {name}: dispatches_per_batch")
+            e.close()
+            metrics[f"serve_{name}_install_ms"] = (t1 - t0) * 1e3
+            metrics[f"serve_{name}_cold_ms"] = (t2 - t0) * 1e3
+            metrics[f"serve_{name}_warm_ms"] = float(np.median(warm))
+            metrics[f"serve_{name}_direct_bitwise"] = bool(same)
+            print(f"phase 16 {name}: {installed} programs installed in {(t1 - t0) * 1e3:.2f} ms; cold "
+                  f"(install + first request of {SERVE_REQUEST_ROWS} rows) {(t2 - t0) * 1e3:.2f} ms, warm "
+                  f"(replay) {metrics[f'serve_{name}_warm_ms']:.4f} ms (median of {SERVE_WARM_REPS}); served "
+                  f"== direct, bitwise: {same} [{card}]")
+    finally:
+        htt.use_comm(prev_comm)
+        htt.fuse.clear_cache()
+    metrics["knn_predict_ms"] = knn_ms
+    metrics["knn_predict_before_ms"] = knn_before_ms
+    print(f"phase 8's knn_predict_ms {knn_ms:.2f} (fused, the reference's tie order) beside "
+          f"{knn_before_ms:.2f} (eager, a float torch.topk), this run [{card}]")
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -3913,6 +4167,17 @@ def run(dev, out_path=None) -> int:
             row.setdefault("launches_by_phase", {})["15"] = redist_launches[row["name"]]
             row["launches"] += redist_launches[row["name"]]
     print(f"phase 15: {redist_metrics['phase15_s']:.1f} s; launches {redist_launches} [{card}]")
+    # ---------------------------------------------------------------- 16
+    t16 = time.perf_counter()
+    serve_launches, serve_metrics = phase_serving(
+        torch, htt, dev, data, counted, card, est_metrics["knn_predict_ms"],
+        est_metrics["knn_predict_before_ms"])
+    serve_metrics["phase16_s"] = time.perf_counter() - t16
+    for row in kernel_rows:
+        if row["name"] in serve_launches:
+            row.setdefault("launches_by_phase", {})["16"] = serve_launches[row["name"]]
+            row["launches"] += serve_launches[row["name"]]
+    print(f"phase 16: {serve_metrics['phase16_s']:.1f} s; launches {serve_launches} [{card}]")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -3934,6 +4199,7 @@ def run(dev, out_path=None) -> int:
         **io_metrics,
         **fuse_metrics,
         **redist_metrics,
+        **serve_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

@@ -15,7 +15,10 @@ histograms, SLOs, the flight recorder, Perfetto export and ``/metrics``;
 collective guards, loop snapshots with strict and elastic resume); file
 IO (``io``: HDF5, NetCDF-3, CSV on a native scanner, and the out-of-core
 stream the mini-batch fits consume), estimator checkpoints
-(``save_estimator``/``load_estimator``) and the bundled ``datasets``.  Arrays live on the GPU by default; the
+(``save_estimator``/``load_estimator``) and the bundled ``datasets``; and
+in-process serving (``serve``: the model registry, the micro-batcher,
+the engine of fused predicts and the seeded load generator) with the
+replica RPC framing (``net.wire``).  Arrays live on the GPU by default; the
 CPU is used only when asked for (``use_device("cpu")``, ``device="cpu"``
 or a communicator of CPU positions).
 
@@ -29,6 +32,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+from .version import __version__  # noqa: E402
 from . import core  # noqa: E402
 from .core import *  # noqa: E402,F401,F403
 from .core import types  # noqa: E402
@@ -46,6 +50,8 @@ from . import telemetry  # noqa: E402
 from . import resilience  # noqa: E402
 from . import obs  # noqa: E402
 from . import datasets  # noqa: E402
+from . import net  # noqa: E402
+from . import serve  # noqa: E402
 
 # htt.io is the io PACKAGE (the flat loaders re-exported, and the stream):
 # `from .core import *` bound the name to the flat core.io module, so the

@@ -3,7 +3,7 @@ ops and linear algebra (the flat namespace of
 ``heat_tpu/core/__init__.py``)."""
 
 from .communication import *  # noqa: F401,F403
-from .devices import cpu, get_device, gpu, sanitize_device, use_device
+from .devices import Device, cpu, get_device, gpu, sanitize_device, use_device
 from . import types
 from .types import *  # noqa: F401,F403
 from .constants import *  # noqa: F401,F403

@@ -7,11 +7,12 @@ non-loopback hosts are refused at construction time.
 
 - ``_base`` — the bind-host policy (``check_loopback``) and the atomic
   daemon-thread HTTP server lifecycle (``LoopbackHTTPServer``).
-
-The reference's replica RPC framing (``wire``) comes with the serving
-plane.
+- ``wire`` — length-prefixed framing for the replica RPC (JSON header
+  + raw ndarray blobs, no pickle), blocking and asyncio flavors; frames
+  are byte-identical to ``heat_tpu.net.wire``'s.
 """
 
 from ._base import LOOPBACK_HOSTS, LoopbackHTTPServer, check_loopback
+from . import wire
 
-__all__ = ["LOOPBACK_HOSTS", "LoopbackHTTPServer", "check_loopback"]
+__all__ = ["LOOPBACK_HOSTS", "LoopbackHTTPServer", "check_loopback", "wire"]

@@ -53,11 +53,28 @@ __all__ = ["Lasso"]
 _POWER_STEPS = 50
 
 
+def _fma_chain(arr: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    """``[1, arr] @ th`` as the reference's compiled CPU program sums it
+    (XLA's loop fusion of the dot, for up to 33 terms): one float32 fused
+    multiply-add per term, first to last, each emulated in float64 (where
+    the product of two float32 values is exact) and rounded to float32."""
+    acc = th[0].expand(arr.shape[0])
+    for j in range(arr.shape[1]):
+        acc = (arr[:, j].double() * th[j + 1].double() + acc.double()).to(torch.float32)
+    return acc
+
+
 def _lasso_predict_program(x: DNDarray, theta: DNDarray) -> DNDarray:
     """``y = theta_0 + x @ theta_1:`` as one program, so a warm predict is
-    one dispatch (one CUDA-graph replay on the card)."""
+    one dispatch (one CUDA-graph replay on the card).  On the CPU the sum
+    runs in the reference's FMA order, so a served reply is bitwise the
+    reference's; on the card it is one ``addmv``."""
     th = theta.larray.reshape(-1)
-    pred = torch.addmv(th[:1], x.larray.to(torch.float32), th[1:]).reshape(-1, 1)
+    arr = x.larray.to(torch.float32)
+    if arr.device.type == "cpu":
+        pred = _fma_chain(arr, th).reshape(-1, 1)
+    else:
+        pred = torch.addmv(th[:1], arr, th[1:]).reshape(-1, 1)
     return DNDarray(pred, (x.shape[0], 1), types.float32, x.split, x.device, x.comm)
 
 

@@ -1,0 +1,65 @@
+"""heat_tpu_torch.serve — multi-tenant micro-batched inference serving.
+
+Port of the in-process serving core of ``heat_tpu.serve``; four parts,
+one pipeline:
+
+- :mod:`registry` — versioned per-tenant estimator store over the
+  checkpoint manifests (``<root>/<tenant>/<model>/v<N>.h5``), LRU-cached
+  so one estimator object backs every request for a version;
+- :mod:`batcher` — async micro-batching: concurrent submits coalesce
+  into fixed-shape batches, rows bucketed to powers of two with
+  canonical zero padding + validity mask;
+- :mod:`engine` — persistent fused predict programs (``htt.fuse`` keyed
+  on the bucketed shapes, one CUDA-graph replay each on the card):
+  exactly one dispatch per micro-batch, ``guard("degrade")`` quarantine
+  for poisoned payloads, ``serve:*`` spans and queue/occupancy gauges;
+- :mod:`loadgen` — seeded open-loop load generation producing the
+  ``serve_predictions_per_sec`` / ``serve_p99_ms`` headlines with an
+  in-run unbatched direct-predict twin as the bitwise golden.
+
+The reference's fleet (``fleet``, ``health``, ``wfq``, ``ingress``,
+``procfleet``: replica processes behind the ``net.wire`` RPC) is not
+ported yet.
+
+The contract underneath it all: a batched reply is BITWISE equal to the
+same request's unbatched predict, because every predict program in the
+library is row-independent and the pad rows are sliced away before the
+reply leaves the engine.
+"""
+
+from .batcher import MicroBatcher, Request, StagingPool, bucket_rows, pad_batch
+from .engine import Reply, ServeEngine
+from .errors import (
+    IngressBootError,
+    ServeClosedError,
+    ServeDeadlineError,
+    ServeOverloadError,
+)
+from .registry import (
+    ManifestError,
+    ModelNotFoundError,
+    ModelRegistry,
+    RegistryError,
+    VersionNotFoundError,
+)
+from . import loadgen
+
+__all__ = [
+    "IngressBootError",
+    "ManifestError",
+    "MicroBatcher",
+    "ModelNotFoundError",
+    "ModelRegistry",
+    "RegistryError",
+    "Reply",
+    "Request",
+    "ServeClosedError",
+    "ServeDeadlineError",
+    "ServeEngine",
+    "ServeOverloadError",
+    "StagingPool",
+    "VersionNotFoundError",
+    "bucket_rows",
+    "loadgen",
+    "pad_batch",
+]

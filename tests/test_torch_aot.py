@@ -21,6 +21,7 @@ import torch
 import jax
 
 import heat_tpu as ht
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core import _compile, aot

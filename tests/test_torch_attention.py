@@ -31,6 +31,7 @@ from heat_tpu.parallel import flash_attention_partial as jpartial
 from heat_tpu.parallel import primitives as jprim
 from heat_tpu.parallel.flash_attention import _causal_chunk_bounds as jbounds
 from heat_tpu.parallel.flash_attention import conforms as jconforms
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import torch
 

@@ -1309,3 +1309,66 @@ def test_policy_flip_recaptures_a_fused_resplit(cuda_device):
         assert tcq.quantize_blocks.launches == 0
     for out in (first, again, flipped):
         assert np.array_equal(out.numpy(), data * 2.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_knn_ties_on_card_go_to_the_lowest_training_row(cuda_device, k):
+    """ROADMAP C9's input on the card: the fused predict gives the
+    reference's tie order (training row 0 for k = 1), as on the CPU."""
+    train = np.array([[0, 0], [0, 0], [0, 0], [3, 3], [0, 0], [4, 4], [0, 0], [5, 5]], np.float32)
+    labels = np.array([1, 0, 0, 1, 1, 1, 0, 0])
+    query = np.zeros((8, 2), np.float32)
+    got = []
+    for dev in (cuda_device, torch.device("cpu")):
+        comm = htt.TorchCommunication([dev])
+        knn = htt.classification.KNN(htt.array(train, split=0, comm=comm),
+                                     htt.array(labels, split=0, comm=comm), k)
+        got.append(knn.predict(htt.array(query, split=0, comm=comm)).numpy())
+    np.testing.assert_array_equal(got[0], got[1])
+    if k == 1:
+        assert (got[0] == 1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("background", [False, True])
+def test_served_predicts_on_card_bitwise_their_direct_twin(cuda_device, background):
+    """The four fused predicts served by ``ServeEngine`` on the card (from
+    ``chip_smoke.MemoryRegistry``: no ``h5py`` there), with the batches on
+    the caller's thread or on the lanes' workers: every reply bitwise the
+    unbatched direct predict, one dispatch a micro-batch."""
+    from heat_tpu_torch.serve import ServeEngine
+
+    comm = htt.TorchCommunication([cuda_device])
+    rng = np.random.default_rng(17)
+    data = rng.standard_normal((512, 6)).astype(np.float32)
+    labels = rng.integers(0, 3, 512)
+    x = htt.array(data, split=0, comm=comm)
+    reg = chip_smoke.MemoryRegistry()
+    reg.publish("t", "km", htt.cluster.KMeans(n_clusters=3, max_iter=3, random_state=0).fit(x))
+    reg.publish("t", "nb", htt.naive_bayes.GaussianNB().fit(x, htt.array(labels, split=0, comm=comm)))
+    reg.publish("t", "knn", htt.classification.KNN(x, htt.array(labels, split=0, comm=comm), 5))
+    reg.publish("t", "lasso", htt.regression.Lasso(max_iter=5).fit(
+        x, htt.array(data[:, 0].copy(), split=0, comm=comm)))
+    prev = htt.core.communication._default_comm
+    htt.use_comm(comm)
+    eng = ServeEngine(reg, max_batch_rows=32, min_bucket=8, max_delay_s=0.005)
+    try:
+        if background:
+            eng.start()
+        for name in ("km", "nb", "knn", "lasso"):
+            pays = [rng.standard_normal((r, 6)).astype(np.float32) for r in (1, 3, 5, 8, 2, 13, 7)]
+            futs = [eng.submit("t", name, p) for p in pays]
+            if not background:
+                eng.flush()
+            # every reply before the first direct call: the engine counts a
+            # batch's dispatches process-wide, as the reference does
+            replies = [f.result(timeout=60) for f in futs]
+            for p, reply in zip(pays, replies):
+                assert not reply.degraded
+                assert chip_smoke.same_bytes(reply.value, eng.direct_predict("t", name, p)), name
+        assert eng.stats()["dispatches_per_batch"] == 1.0
+    finally:
+        eng.close()
+        htt.use_comm(prev)
+        htt.fuse.clear_cache()

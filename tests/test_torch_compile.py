@@ -14,7 +14,8 @@ asserts the port's own count, with the reason beside it in ``DIFFERS``.
 The reference's state is only read: its compile caches, dispatch counter
 and telemetry switch are never cleared or reset (dispatches are read
 through ``counting_dispatches()`` windows), and every policy a test sets
-is restored.  The port's caches are cleared freely.
+is restored.  The port's caches are cleared freely.  At the file's end
+``reference_state`` puts the reference's caches back as it found them.
 """
 
 import types as _pytypes
@@ -31,6 +32,7 @@ from heat_tpu.core import _tracing as rtracing
 from heat_tpu.io import stream as rstream
 from heat_tpu.resilience import guards as rguards
 from heat_tpu.telemetry import counting_dispatches as ref_window
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import compressed as cq
@@ -472,7 +474,7 @@ def test_eager_pipeline_issues_many_dispatches(port):
 
 def _library(mod, shape=(40, 4), seed=21):
     """Fitted estimators and an input in either package (``mod`` is ``ht``
-    or ``htt``), from the same numpy data."""
+    or ``htt``), from the same numpy data; KNN (k = 5) rides on ``nb``."""
     rng = np.random.default_rng(seed)
     data = rng.standard_normal(shape).astype(np.float32)
     labels = rng.integers(0, 3, shape[0]).astype(np.int64)
@@ -480,6 +482,7 @@ def _library(mod, shape=(40, 4), seed=21):
     x = mod.array(data, split=0)
     km = mod.cluster.KMeans(n_clusters=3, init=mod.array(data[:3]), max_iter=3).fit(x)
     nb = mod.naive_bayes.GaussianNB().fit(x, mod.array(labels, split=0))
+    nb.knn = mod.classification.KNN(x, mod.array(labels, split=0), 5)
     la = mod.regression.Lasso(max_iter=5).fit(x, mod.array(target, split=0))
     return x, km, nb, la
 
@@ -496,6 +499,8 @@ LIBRARY = {
     "GaussianNB.predict_log_proba": (lambda m, x, km, nb, la: nb.predict_log_proba(x), None),
     "GaussianNB.predict_proba": (lambda m, x, km, nb, la: nb.predict_proba(x), None),
     "Lasso.predict": (lambda m, x, km, nb, la: la.predict(x), None),
+    # C10: the port's KNN predict is the fused _fused_knn_predict
+    "KNN.predict": (lambda m, x, km, nb, la: nb.knn.predict(x), None),
     # the port's svd is not fused: cuSOLVER's gesvdj syncs the host inside
     # and fails under a CUDA-graph capture (ROADMAP, "Dispatch accounting");
     # it counts its TSQR program (qr.tsqr)

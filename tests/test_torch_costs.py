@@ -31,6 +31,7 @@ from heat_tpu.comm import redistribute as rrd
 from heat_tpu.core import _compile as rcompile
 from heat_tpu.core.communication import XlaCommunication
 from heat_tpu.telemetry import _core as rcore
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import _costs as tcosts

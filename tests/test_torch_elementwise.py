@@ -19,6 +19,7 @@ import pytest
 import jax
 
 import heat_tpu as ht
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core import communication as tcomm

@@ -9,7 +9,11 @@ Cases come from the reference's ``test_types.py`` and
 """
 
 import importlib
+import json
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ import pytest
 import jax
 
 import heat_tpu as ht
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core import communication as tcomm
@@ -41,6 +46,10 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
     "communication": {"init_multihost": "A3b"},
+    "serve": {n: "A17b" for n in (
+        "CanaryConfig", "FleetEngine", "FleetMetricsServer", "HedgePolicy", "Ingress",
+        "IngressClient", "ProcFleet", "ReplicaProc", "TenantPolicy", "WatermarkAutoscaler",
+        "WeightedFairQueue")},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
@@ -66,6 +75,8 @@ BASE_MODULES = [
     "resilience.guards", "resilience.incidents", "resilience.retry", "resilience.fixtures",
     "resilience.resume", "resilience.elastic", "io", "io.stream", "datasets", "obs", "native",
     "comm", "comm._costs", "comm.overlap", "comm.redistribute",
+    "net", "net.wire", "serve", "serve.errors", "serve.registry", "serve.batcher", "serve.engine",
+    "serve.loadgen",
 ]
 
 
@@ -109,6 +120,44 @@ def test_surface_equals_reference_less_waiting_names(name):
     assert set(mine.__all__) - PORT_ONLY.get(name, set()) == want
     for n in mine.__all__:
         assert hasattr(mine, n), n
+
+
+#: the package-level names that differ on purpose (C11): the reference's
+#: waiting names with the queue item that brings them, the names it leaks,
+#: its communicator's name, and the port's own names
+TOP_WAITING = {"autoshard": "A15b", "init_multihost": "A3b"}
+TOP_REF_LEAKS = {"basics", "solver"}
+TOP_RENAMED = {"XlaCommunication": "TorchCommunication", "heat_tpu": "heat_tpu_torch"}
+#: ``interop`` is imported by the port's package (the reference leaves
+#: its module to an explicit import); ``gpu`` and ``neg`` as ``PORT_ONLY``
+TOP_PORT_ONLY = {"gpu", "neg", "interop"}
+
+
+def _fresh_names() -> tuple:
+    """Both packages' public names as a fresh interpreter sees them after
+    ``import``: in this process other test files import submodules (the
+    port's ``kernels``, the reference's ``analysis``), which become
+    package attributes."""
+    code = ("import json, heat_tpu, heat_tpu_torch\n"
+            "print(json.dumps([sorted(n for n in dir(m) if not n.startswith('_'))"
+            " for m in (heat_tpu, heat_tpu_torch)]))")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=root, timeout=300, check=True)
+    ref, mine = json.loads(out.stdout.strip().splitlines()[-1])
+    return set(ref), set(mine)
+
+
+def test_package_names_equal_the_references_less_the_listed_differences():
+    ref, mine = _fresh_names()
+    want = {TOP_RENAMED.get(n, n) for n in ref} - set(TOP_WAITING) - TOP_REF_LEAKS
+    assert mine - TOP_PORT_ONLY == want
+    assert htt.Device is htt.core.devices.Device and isinstance(htt.cpu, htt.Device)
+    assert htt.__version__ == ht.__version__
+    assert htt.version is importlib.import_module("heat_tpu_torch.version")
+    for n in ("major", "minor", "micro", "extension", "__version__"):
+        assert getattr(htt.version, n) == getattr(ht.version, n), n
 
 
 def test_flat_namespace_exports_the_slice():

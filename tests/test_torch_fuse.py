@@ -18,7 +18,8 @@ constructors (``torch.tensor``, ``torch.as_tensor`` of host data: on the
 card a pageable copy) made to raise while a trace is active: what would
 break a capture on the card fails here.
 
-The reference's caches and dispatch counter are never cleared or reset.
+The tests never clear the reference's caches or reset its dispatch
+counter; ``reference_state`` puts its caches back at the file's end.
 """
 
 import types as _pytypes
@@ -30,6 +31,7 @@ import torch
 import jax
 
 import heat_tpu as ht
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import compressed as cq
@@ -390,6 +392,7 @@ def test_library_predicts_fused_equal_eager_and_reference():
     """Each fused predict is one dispatch, bitwise its program run eagerly,
     and equal to the reference's (labels exactly; probabilities at the
     estimator tests' tolerances)."""
+    from heat_tpu_torch.classification import knn as pknn
     from heat_tpu_torch.cluster import _kcluster
     from heat_tpu_torch.naive_bayes import gaussianNB as pnb
     from heat_tpu_torch.regression import lasso as plasso
@@ -402,6 +405,8 @@ def test_library_predicts_fused_equal_eager_and_reference():
     rx, rkm, rnb, rla = _estimators(ht, data, labels, target)
     theta, sigma, prior = (torch.as_tensor(t) for t in nb._fit_params())
     classes = torch.as_tensor(np.asarray(nb.classes_))
+    kn = htt.classification.KNN(x, htt.array(labels, split=0), 5)
+    rkn = ht.classification.KNN(rx, ht.array(labels, split=0), 5)
     cases = [
         (km.predict, lambda: _kcluster._assign_program(x, km.cluster_centers_, km._metric),
          rkm.predict, 0),
@@ -411,6 +416,7 @@ def test_library_predicts_fused_equal_eager_and_reference():
         (nb.predict_proba, lambda: pnb._nb_proba_program(x, theta, sigma, prior),
          rnb.predict_proba, 1e-6),
         (la.predict, lambda: plasso._lasso_predict_program(x, la._Lasso__theta), rla.predict, 1e-5),
+        (kn.predict, lambda: pknn._knn_predict_program(x, kn.x, kn.y, 5, htt.float32), rkn.predict, 0),
     ]
     for fused, eager, ref, tol in cases:
         n, got = _dispatches(fused, x)
@@ -604,6 +610,7 @@ def test_library_pipelines_trace_without_host_syncs(no_host_sync):
     nb.predict_log_proba(x)
     nb.predict_proba(x)
     la.predict(x)
+    htt.classification.KNN(x, htt.array(labels, split=0), 5).predict(x)
 
 
 def test_int8_moments_trace_without_host_syncs(no_host_sync):

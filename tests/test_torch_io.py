@@ -34,6 +34,7 @@ from heat_tpu import telemetry as rtel
 from heat_tpu.resilience import faults as rfaults
 from heat_tpu.resilience import incidents as rincidents
 from heat_tpu.resilience import retry as rretry
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch import native

@@ -12,6 +12,8 @@ from pathlib import Path
 
 import pytest
 
+from test_torch_reference_state import reference_state  # noqa: F401  (restores the JAX package's state)
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "heat_tpu_torch"
 
@@ -72,7 +74,10 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.io.stream", "heat_tpu_torch.native", "heat_tpu_torch.datasets",
         "heat_tpu_torch.obs", "heat_tpu_torch.cluster.kmeans",
         "heat_tpu_torch.core._tracing", "heat_tpu_torch.core._compile",
-        "heat_tpu_torch.core.fuse", "heat_tpu_torch.core.aot",
+        "heat_tpu_torch.core.fuse", "heat_tpu_torch.core.aot", "heat_tpu_torch.version",
+        "heat_tpu_torch.net.wire", "heat_tpu_torch.serve", "heat_tpu_torch.serve.errors",
+        "heat_tpu_torch.serve.registry", "heat_tpu_torch.serve.batcher",
+        "heat_tpu_torch.serve.engine", "heat_tpu_torch.serve.loadgen",
     ]
     proc = _run(
         "import importlib, sys\n"

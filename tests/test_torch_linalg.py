@@ -27,6 +27,7 @@ import pytest
 import jax
 
 import heat_tpu as ht
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import torch
 

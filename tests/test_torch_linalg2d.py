@@ -39,6 +39,7 @@ import jax.numpy as jnp
 
 import heat_tpu as ht
 from heat_tpu.core.communication import grid_comm as ref_grid_comm
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import _costs as tcosts

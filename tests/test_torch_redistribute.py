@@ -30,6 +30,7 @@ import heat_tpu as ht
 from heat_tpu.comm import compressed as rcq
 from heat_tpu.comm import redistribute as rrd
 from heat_tpu.core.communication import XlaCommunication
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import compressed as tcq

@@ -24,6 +24,7 @@ from heat_tpu.comm import compressed as rcq
 from heat_tpu.comm import redistribute as rrd
 from heat_tpu.core.communication import grid_comm as ref_grid_comm
 from heat_tpu.telemetry import _core as rcore
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import compressed as tcq

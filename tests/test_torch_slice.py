@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import heat_tpu as ht
 from heat_tpu.comm import compressed as jcq
 from heat_tpu.core.communication import XlaCommunication
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import torch
 

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import heat_tpu as ht
 from heat_tpu.core import dndarray as ref_dnd
 from heat_tpu.parallel import take as ref_take
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core import dndarray as port_dnd

@@ -13,6 +13,7 @@ import jax
 import heat_tpu as ht
 from heat_tpu.core import _split_semantics as rss
 from heat_tpu.core.communication import XlaCommunication
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core import _split_semantics as tss

@@ -35,6 +35,7 @@ import jax
 
 import heat_tpu as ht
 from heat_tpu.comm import compressed as jcq
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.comm import compressed as tcq

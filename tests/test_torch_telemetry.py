@@ -56,6 +56,7 @@ from heat_tpu.telemetry import export as rexport
 from heat_tpu.telemetry import flight as rflight
 from heat_tpu.telemetry import hist as rhist
 from heat_tpu.telemetry import httpz as rhttpz
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch import telemetry as tel

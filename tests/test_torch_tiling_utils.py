@@ -23,6 +23,7 @@ import heat_tpu as ht
 from heat_tpu.core.tiling import SplitTiles as RefSplitTiles
 from heat_tpu.core.tiling import SquareDiagTiles as RefSquareDiagTiles
 from heat_tpu.utils import profiler as ref_profiler
+from test_torch_reference_state import reference_state  # noqa: F401,E402  (restores the JAX package's state)
 
 import heat_tpu_torch as htt
 from heat_tpu_torch.core.tiling import SplitTiles, SquareDiagTiles
