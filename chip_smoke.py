@@ -291,6 +291,37 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    of 5 rows, which must build nothing) and the warm one (a replay); and
    phase 8's ``knn_predict_ms`` beside the eager float ``topk`` formula it
    replaced, timed in the same run.
+17. the serving fleet (``FleetEngine``, ``ProcFleet``, ``Ingress``) as the
+   reference benchmark runs it, unreduced (bench.py:2329-2680), KMeans
+   (k=8, 3 steps, ``random_state`` 0) on the blobs' first 20 000 rows
+   behind ``ServeEngine(max_batch_rows=64, min_bucket=8)``, its AOT
+   bundles exported to the sidecar of ``DiskRegistry`` (the fitted state
+   as ``.npz``: the card has no ``h5py``; the replica processes open it
+   through this script's ``--replica`` mode).  (1) ``fleet_rates``: a
+   ``WatermarkAutoscaler(low=1, high=4, hysteresis=1, max_replicas=2)``
+   fleet in this process through 20 scale events, each a tick that adds a
+   warm replica and one request a replica: ``replica_cold_start_ms``,
+   ``scale_event_p99_ms``, ``installed_per_scale_up``, and no fuse or
+   compile miss across any scale-up (``zero_compile_scale_ups``, a gate).
+   (2) ``procfleet_rates``: 1, 2 and 4 replica processes on this card (each
+   its own CUDA context: time-sliced unless MPS runs, and the phase prints
+   the compute mode and whether it does), 160 seeded requests of 1-32 rows
+   a drive, a warm-up drive and 3 timed ones: ``pps_by_replicas`` and
+   ``scaling_efficiency``; gates: every hello 0 fuse and 0 compile misses
+   with every bundle installed (``zero_compile_spinups``), the first
+   drive's reply ledger equal to the in-process ``FleetEngine`` twin's
+   CRCs (``twin_ledger_equal``), one CUDA context for each replica while
+   it runs (by pid where ``nvidia-smi`` lists the processes' own pids, else
+   by count) and none left after close; in the two-replica fleet, one
+   kill -9 of a replica at request 80 of an extra drive: the disposition
+   ledger only ``ok`` and ``requeued-ok`` (as many as re-queued), the
+   reply ledger the twin's, the replacement warm, the killed replica's
+   context gone.  (3) ``hedged_rates``: 2 replicas behind ``Ingress``, 96
+   requests of 1-16 rows a drive, 250 ms straggles on ``replica0`` at its
+   8th, 24th and 40th dispatch: ``hedged_tail_p99_ms``,
+   ``unhedged_tail_p99_ms``, ``hedged_vs_unhedged`` and
+   ``armed_idle_overhead_p99``.  No kernel of B1-B4 runs (the counts are
+   set to 0 before the phase and must read 0 after it); ``phase17_s``.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -309,8 +340,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -388,6 +421,16 @@ KNN_K = 5
 SERVE_FIT_ROWS, SERVE_MAX_BATCH, SERVE_MIN_BUCKET = 20_000, 64, 8
 SERVE_WARMUP, SERVE_REQUESTS, SERVE_RUNS = 32, 512, 7
 SERVE_REQUEST_ROWS, SERVE_WARM_REPS, SERVE_LASSO_SWEEPS = 5, 20, 10
+#: phase 17: the reference benchmark's three fleet runs, unreduced
+#: (bench.py:2329-2680): scale events of fleet_rates; procfleet_rates'
+#: requests a drive, their rows, timed drives and fleet sizes; the
+#: request at which a replica is killed in an extra drive of the
+#: two-replica fleet; hedged_rates' requests, rows, straggle and the
+#: dispatches of replica 0 it pins the straggles to
+FLEET_EVENTS = 20
+PROC_REQUESTS, PROC_MAX_ROWS, PROC_DRIVES, PROC_SIZES = 160, 32, 3, (1, 2, 4)
+PROC_KILL_AT = 80
+HEDGE_REQUESTS, HEDGE_MAX_ROWS, HEDGE_STRAGGLE_S, HEDGE_NTH = 96, 16, 0.25, (8, 24, 40)
 #: phase 9: float32's unit roundoff, the halo width, the identity's order
 U32 = 2.0 ** -24
 HALO = 2
@@ -3939,10 +3982,380 @@ def phase_serving(torch, htt, dev, data, counted, card, knn_ms, knn_before_ms):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------- #
+# the serving fleet (phase 17)                                           #
+# ---------------------------------------------------------------------- #
+class DiskRegistry:
+    """The engine's registry interface over a directory that the card
+    machine can read without ``h5py`` (``serve.ModelRegistry`` keeps HDF5
+    checkpoints): each version of a k-clusterer as
+    ``<root>/<tenant>/<model>/v<N>.npz``, its fitted state (class, centers,
+    ``n_iter``, ``inertia``), beside the port's pickled AOT sidecar
+    ``v<N>.aotx``.  ``load`` rebuilds a version with its class's
+    ``from_fitted`` on the default communicator, once: every request of
+    a version sees one estimator.  A replica process opens it by its root
+    (``python3 chip_smoke.py --replica CONFIG``)."""
+
+    def __init__(self, root):
+        self.root = str(root)
+        self._cache = {}
+        self._lock = threading.Lock()
+
+    def _path(self, tenant, model, version, ext):
+        return os.path.join(self.root, tenant, model, f"v{int(version)}.{ext}")
+
+    def versions(self, tenant, model):
+        folder = os.path.join(self.root, tenant, model)
+        if not os.path.isdir(folder):
+            return []
+        return sorted(int(f[1:-4]) for f in os.listdir(folder) if f.startswith("v") and f.endswith(".npz"))
+
+    def resolve(self, tenant, model, version=None):
+        from heat_tpu_torch.serve.registry import ModelNotFoundError, VersionNotFoundError
+
+        versions = self.versions(tenant, model)
+        if not versions:
+            raise ModelNotFoundError(f"tenant={tenant!r} model={model!r}: nothing published in {self.root}")
+        version = versions[-1] if version is None else int(version)
+        if version not in versions:
+            raise VersionNotFoundError(f"tenant={tenant!r} model={model!r} has no version {version}")
+        return version, self._path(tenant, model, version, "npz")
+
+    def publish(self, tenant, model, est):
+        version = (self.versions(tenant, model) or [0])[-1] + 1
+        path = self._path(tenant, model, version, "npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cls = type(est)
+        np.savez(path, cls=np.array(f"{cls.__module__}:{cls.__qualname__}"),
+                 cluster_centers=est.cluster_centers_.numpy(),
+                 n_iter=np.array(-1 if est.n_iter_ is None else est.n_iter_),
+                 inertia=np.array(np.nan if est.inertia_ is None else est.inertia_))
+        return version
+
+    def load(self, tenant, model, version=None):
+        import importlib
+
+        version, path = self.resolve(tenant, model, version)
+        key = (tenant, model, version)
+        with self._lock:
+            if key not in self._cache:
+                with np.load(path) as f:
+                    module, name = str(f["cls"]).split(":")
+                    state = {"cluster_centers": f["cluster_centers"],
+                             "n_iter": None if int(f["n_iter"]) < 0 else int(f["n_iter"]),
+                             "inertia": None if np.isnan(f["inertia"]) else float(f["inertia"])}
+                cls = getattr(importlib.import_module(module), name)
+                self._cache[key] = cls.from_fitted(state)
+            return self._cache[key], version
+
+    def publish_executables(self, tenant, model, version, bundles):
+        import pickle
+
+        with open(self._path(tenant, model, version, "aotx"), "wb") as fh:
+            pickle.dump(list(bundles), fh)
+
+    def load_executables(self, tenant, model, version=None, *, policy=None):
+        import pickle
+
+        version, _ = self.resolve(tenant, model, version)
+        path = self._path(tenant, model, version, "aotx")
+        if not os.path.exists(path):
+            return [], version
+        with open(path, "rb") as fh:  # written by this program's publish_executables
+            return pickle.load(fh), version
+
+
+def replica_argv():
+    """The command (after the interpreter) that makes a fleet replica of
+    this script: ``ReplicaProc._child_argv`` while phase 17 and the card
+    tests run."""
+    return (os.path.abspath(__file__), "--replica")
+
+
+def replica(config: str) -> int:
+    """A replica process over :class:`DiskRegistry`: the port's replica
+    body (``heat_tpu_torch.serve._replica_main.serve``) with the registry
+    the card can read."""
+    from heat_tpu_torch.serve import _replica_main
+
+    cfg = json.loads(config)
+    return _replica_main.serve(cfg, DiskRegistry(cfg["registry_root"]))
+
+
+def compute_apps() -> list:
+    """The pid of each CUDA context ``nvidia-smi`` lists on the machine."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi --query-compute-apps failed: {out.stderr.strip()}")
+    return [int(x) for x in out.stdout.split()]
+
+
+def check_contexts(base: list, pids: list, what: str) -> str:
+    """Hold the card's CUDA contexts to the replicas running: each pid in
+    ``pids`` listed by ``nvidia-smi``, and no pid of an ended replica.
+    Where ``nvidia-smi`` does not list processes under their own pids (a
+    container whose PID namespace the GPU kernel module cannot see shows every
+    context under one other pid; this process's own pid is then missing
+    too), each replica must add one context to ``base``, the list before
+    any replica started.  Polls for up to
+    20 s: a killed process's context goes after it exits.  Returns the
+    route: "pids" or "count"."""
+    deadline = time.monotonic() + 20
+    while True:
+        apps = compute_apps()
+        by_pid = os.getpid() in apps
+        ok = (set(pids) <= set(apps) and len(apps) == len(base) + len(pids)) if by_pid \
+            else len(apps) == len(base) + len(pids)
+        if ok or time.monotonic() > deadline:
+            break
+        time.sleep(0.25)
+    check(ok, f"phase 17 {what}: nvidia-smi lists {apps} with {len(base)} context(s) before the "
+              f"replicas; want {'the replica pids ' + str(pids) if by_pid else str(len(pids)) + ' more'}")
+    return "pids" if by_pid else "count"
+
+
+def phase_fleet(torch, htt, dev, data, counted, card):
+    """Phase 17 (see the module docstring).  Returns ``(launches,
+    metrics)``."""
+    import tempfile
+    import zlib
+
+    from heat_tpu_torch import telemetry
+    from heat_tpu_torch.resilience import faults
+    from heat_tpu_torch.serve import (
+        FleetEngine, HedgePolicy, Ingress, IngressClient, ProcFleet, ReplicaProc, ServeEngine,
+        WatermarkAutoscaler, loadgen,
+    )
+
+    fa = __import__("importlib").import_module("heat_tpu_torch.parallel.flash_attention")
+    kernels = list(counted) + [fa.flash_attention, fa.flash_attention_partial]
+    metrics = {}
+    kw = dict(max_batch_rows=SERVE_MAX_BATCH, min_bucket=SERVE_MIN_BUCKET)
+    comm1 = htt.TorchCommunication([dev])
+    prev_comm, prev_argv = htt.core.communication._default_comm, ReplicaProc._child_argv
+    tmp = tempfile.TemporaryDirectory(prefix="phase17-")
+    mps = os.path.exists(os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps"))
+    metrics.update(compute_mode=smi("compute_mode"), mps=mps)
+    htt.use_comm(comm1)  # the replicas take the parent's positions: one, on this card
+    ReplicaProc._child_argv = replica_argv()
+    try:
+        base = compute_apps()
+        htt.fuse.clear_cache()
+        for f in kernels:
+            f.launches = 0
+        t0 = time.perf_counter()
+        km = htt.cluster.KMeans(n_clusters=K, max_iter=3, random_state=0)
+        km.fit(htt.array(data[:SERVE_FIT_ROWS], split=0, comm=comm1))
+        reg = DiskRegistry(tmp.name)
+        reg.publish("bench", "km", km)
+        src = ServeEngine(reg, **kw)
+        bundles = src.export_warm("bench", "km", version=1)
+        src.close()
+        reg.publish_executables("bench", "km", 1, bundles)
+
+        # (1) fleet_rates (bench.py:2329-2410): in-process replicas
+        auto = WatermarkAutoscaler(low=1.0, high=4.0, hysteresis=1, max_replicas=2)
+        fleet = FleetEngine(reg, autoscaler=auto, warm_models=[("bench", "km", 1)], **kw)
+        telemetry.enable()
+        pay8 = np.ascontiguousarray(data[:8], dtype=np.float32)
+        try:
+            fleet.predict("bench", "km", pay8, version=1)
+            scale_ms, zero_compiles = [], True
+            for _ in range(FLEET_EVENTS):
+                before = dict(telemetry.snapshot()["counters"])
+                ts = time.perf_counter()
+                fleet.tick(queue_depth=50.0)
+                for _r in range(len(fleet.replicas)):
+                    fleet.predict("bench", "km", pay8, version=1)
+                scale_ms.append((time.perf_counter() - ts) * 1e3)
+                after = telemetry.snapshot()["counters"]
+                zero_compiles &= all(after.get(c, 0) == before.get(c, 0)
+                                     for c in ("fuse.cache.misses", "compile.cache.misses"))
+                fleet.tick(queue_depth=0.0)
+            installed = [e["installed"] for e in fleet.scale_events if e["action"] == "scale-up"]
+            cold = list(fleet.cold_start_ms[1:])
+            fstats = fleet.stats()
+        finally:
+            fleet.close()
+            telemetry.disable()
+            telemetry.reset()
+        cold_ms, cold_spread = summary(cold)
+        metrics.update({
+            "replica_cold_start_ms": cold_ms, "replica_cold_start_spread_pct": cold_spread,
+            "scale_event_p99_ms": float(np.percentile(scale_ms, 99)),
+            "scale_event_p50_ms": float(np.percentile(scale_ms, 50)),
+            "installed_per_scale_up": min(installed), "exported_bundles": len(bundles),
+            "zero_compile_scale_ups": bool(zero_compiles),
+            "scale_ups": fstats["scale_ups"], "scale_downs": fstats["scale_downs"],
+        })
+        check(zero_compiles, "phase 17 fleet_rates: a scale-up's first predicts built a program")
+        check(min(installed) == len(bundles) and fstats["scale_ups"] == FLEET_EVENTS + 1,
+              f"phase 17 fleet_rates: installed {installed}, scale-ups {fstats['scale_ups']}")
+        print(f"phase 17 fleet_rates: {FLEET_EVENTS} scale events, replica_cold_start_ms {cold_ms:.3f} "
+              f"(spread {cold_spread}%), scale_event_p99_ms {metrics['scale_event_p99_ms']:.3f}, "
+              f"installed_per_scale_up {min(installed)} of {len(bundles)}, zero_compile_scale_ups "
+              f"{zero_compiles} [{card}]")
+
+        # (2) procfleet_rates (bench.py:2413-2530): replica processes
+        seed = loadgen.chaos_seed()
+        arrivals = loadgen.schedule(seed, n_requests=PROC_REQUESTS, min_rows=1, max_rows=PROC_MAX_ROWS)
+        pays = loadgen.payloads(arrivals, F, seed=seed)
+        total_rows = sum(a.rows for a in arrivals)
+        twin = FleetEngine(reg, warm_models=[("bench", "km", 1)], **kw)
+        try:
+            twin_crcs = [zlib.crc32(np.asarray(twin.predict("bench", "km", p, version=1).value).tobytes())
+                         for p in pays]
+        finally:
+            twin.close()
+
+        def drive(fleet, tag, kill_at=None):
+            ts = time.perf_counter()
+            futs = []
+            for i, p in enumerate(pays):
+                futs.append(fleet.submit("bench", "km", p, version=1, request_id=f"{tag}-{i}"))
+                if i == kill_at:
+                    fleet.kill_replica(fleet.alive()[0].index)
+            fleet.flush()
+            wall = time.perf_counter() - ts
+            for f in futs:
+                f.result()
+            return total_rows / wall
+
+        pps_by_n, spread_by_n, spawn_ms, zero_spinups, routes = {}, {}, [], True, set()
+        twin_equal = None
+        for n in PROC_SIZES:
+            with ProcFleet(tmp.name, n_replicas=n, warm_models=[("bench", "km", 1)], **kw) as pf:
+                spawn_ms += pf.cold_start_ms
+                zero_spinups &= all(r.hello["fuse_misses"] == 0 and r.hello["compile_misses"] == 0
+                                    and r.hello["installed"] == len(bundles) for r in pf.alive())
+                routes.add(check_contexts(base, [r.pid for r in pf.alive()], f"{n} replica(s)"))
+                drive(pf, f"warm{n}")
+                if n == 1:
+                    twin_equal = [c for _, c in pf.ledger()[:PROC_REQUESTS]] == twin_crcs
+                pps, spread = summary([drive(pf, f"d{n}{r}") for r in range(PROC_DRIVES)])
+                pps_by_n[n], spread_by_n[n] = pps, spread
+                if n == 2:
+                    # one kill -9 in the middle of a drive
+                    drive(pf, "kill", kill_at=PROC_KILL_AT)
+                    disp = [d for d in pf.disposition_ledger() if d[0].startswith("kill-")]
+                    kinds = sorted({d[1] for d in disp})
+                    kstats = pf.stats()
+                    requeued = sum(d[1] == "requeued-ok" for d in disp)
+                    check(set(kinds) <= {"ok", "requeued-ok"} and len(disp) == PROC_REQUESTS,
+                          f"phase 17 kill -9: dispositions {kinds} over {len(disp)} requests")
+                    check([d[2] for d in disp] == twin_crcs,
+                          "phase 17 kill -9: the reply ledger != the in-process twin's")
+                    check(requeued == kstats["requeued"] and kstats["replica_losses"] == 1
+                          and kstats["respawns"] == 1,
+                          f"phase 17 kill -9: {requeued} requeued-ok, stats {kstats}")
+                    check(all(r.hello["fuse_misses"] == 0 and r.hello["compile_misses"] == 0
+                              for r in pf.alive()), "phase 17 kill -9: the respawned replica built a program")
+                    routes.add(check_contexts(base, [r.pid for r in pf.alive()], "after kill -9 and respawn"))
+                    metrics.update(kill_requeued=requeued, kill_dispositions=kinds)
+                    print(f"phase 17 kill -9 of a replica at request {PROC_KILL_AT} of {PROC_REQUESTS}: "
+                          f"{requeued} un-acked re-queued and answered (requeued-ok), dispositions {kinds}, "
+                          f"ledger == twin, respawned warm (hello 0/0 misses)")
+            routes.add(check_contexts(base, [], f"after the {n}-replica fleet closed"))
+        eff = {n: pps_by_n[n] / (n * pps_by_n[1]) for n in PROC_SIZES}
+        metrics.update({
+            "pps_by_replicas": {str(n): v for n, v in pps_by_n.items()},
+            "pps_spread_pct_by_replicas": {str(n): v for n, v in spread_by_n.items()},
+            "scaling_efficiency": {str(n): v for n, v in eff.items()},
+            "fleet_aggregate_pps": pps_by_n[max(PROC_SIZES)],
+            "replica_spawn_ms": spawn_ms, "zero_compile_spinups": bool(zero_spinups),
+            "twin_ledger_equal": bool(twin_equal), "contexts_checked_by": sorted(routes),
+            "rows_per_drive": total_rows,
+        })
+        check(zero_spinups, "phase 17 procfleet_rates: a replica's hello reported misses or a partial install")
+        check(bool(twin_equal), "phase 17 procfleet_rates: the reply ledger != the in-process FleetEngine twin's")
+        print(f"phase 17 procfleet_rates: {PROC_REQUESTS} requests ({total_rows} rows) a drive, "
+              f"{PROC_DRIVES} drives: pps_by_replicas {metrics['pps_by_replicas']}, scaling_efficiency "
+              f"{metrics['scaling_efficiency']}; spawn ms {[round(x, 1) for x in spawn_ms]}; "
+              f"zero_compile_spinups {zero_spinups}, twin_ledger_equal {twin_equal}; contexts checked by "
+              f"{sorted(routes)}; compute_mode {metrics['compute_mode']}, MPS {mps} [{card}]")
+
+        # (3) hedged_rates (bench.py:2532-2680): the ingress, a gray replica
+        h_arrivals = loadgen.schedule(seed, n_requests=HEDGE_REQUESTS, min_rows=1, max_rows=HEDGE_MAX_ROWS)
+        h_pays = loadgen.payloads(h_arrivals, F, seed=seed)
+
+        def drive_p99(cli, tag):
+            lats = []
+            for i, p in enumerate(h_pays):
+                ts = time.perf_counter()
+                cli.predict("bench", "km", p, version=1, request_id=f"{tag}-{i}")
+                lats.append((time.perf_counter() - ts) * 1e3)
+            lats.sort()
+            return lats[min(len(lats) - 1, int(0.99 * len(lats)))]
+
+        with ProcFleet(tmp.name, n_replicas=2, warm_models=[("bench", "km", 1)], seed=seed, **kw) as pf:
+            check(all(r.hello["fuse_misses"] == 0 and r.hello["compile_misses"] == 0 for r in pf.alive()),
+                  "phase 17 hedged_rates: a replica's hello reported misses")
+            with Ingress(pf) as ing:
+                plain = IngressClient("127.0.0.1", ing.port)
+                hedged = IngressClient("127.0.0.1", ing.port, hedge=HedgePolicy(
+                    hedge_after_quantile=0.9, min_hedge_delay_s=0.02, budget_tokens=64.0, seed=seed))
+                try:
+                    drive_p99(plain, "warm-p")
+                    drive_p99(hedged, "warm-h")
+                    p99_plain, _ = summary([drive_p99(plain, f"idle-p{r}") for r in range(PROC_DRIVES)])
+                    p99_armed, _ = summary([drive_p99(hedged, f"idle-h{r}") for r in range(PROC_DRIVES)])
+
+                    def faulty(cli, tag):
+                        out = []
+                        for r in range(PROC_DRIVES):
+                            with faults.inject("slow_replica", seed=seed, nth=HEDGE_NTH, site="replica0",
+                                               delay=HEDGE_STRAGGLE_S):
+                                out.append(drive_p99(cli, f"{tag}{r}"))
+                        return summary(out)
+
+                    p99_unhedged, unhedged_spread = faulty(plain, "tail-p")
+                    p99_hedged, hedged_spread = faulty(hedged, "tail-h")
+                    hstats = hedged.hedge_stats()
+                finally:
+                    plain.close()
+                    hedged.close()
+            hfleet = pf.stats()
+        routes.add(check_contexts(base, [], "after the hedged fleet closed"))
+        metrics.update({
+            "hedged_tail_p99_ms": p99_hedged, "hedged_tail_spread_pct": hedged_spread,
+            "unhedged_tail_p99_ms": p99_unhedged, "unhedged_tail_spread_pct": unhedged_spread,
+            "hedged_vs_unhedged": p99_hedged / p99_unhedged if p99_unhedged else None,
+            "idle_plain_p99_ms": p99_plain, "idle_armed_p99_ms": p99_armed,
+            "armed_idle_overhead_p99": p99_armed / p99_plain if p99_plain else None,
+            "hedges": hstats["hedges"], "hedge_wins": hstats["hedge_wins"],
+            "budget_exhausted": hstats["budget_exhausted"], "hedge_cancelled": hfleet["cancelled"],
+            "hedge_requeued": hfleet["requeued"], "breaker_opens": hfleet["breaker_opens"],
+        })
+        check(hstats["hedges"] > 0, "phase 17 hedged_rates: the hedged client never hedged")
+        print(f"phase 17 hedged_rates: {HEDGE_REQUESTS} requests a drive, {HEDGE_STRAGGLE_S * 1e3:.0f} ms "
+              f"straggles on replica0 at dispatches {HEDGE_NTH}: hedged_tail_p99_ms {p99_hedged:.3f} "
+              f"(spread {hedged_spread}%), unhedged_tail_p99_ms {p99_unhedged:.3f} (spread "
+              f"{unhedged_spread}%), hedged_vs_unhedged {metrics['hedged_vs_unhedged']:.3f}; idle p99 plain "
+              f"{p99_plain:.3f}, armed {p99_armed:.3f}, armed_idle_overhead_p99 "
+              f"{metrics['armed_idle_overhead_p99']:.3f}; hedges {hstats['hedges']}, wins "
+              f"{hstats['hedge_wins']}, cancelled {hfleet['cancelled']} [{card}]")
+        torch.cuda.synchronize()
+        launches = {f"blockquant_{f.__name__.removesuffix('_blocks')}": f.launches for f in counted}
+        launches.update({f.__name__: f.launches for f in kernels[len(counted):]})
+        metrics["phase17_main_s"] = time.perf_counter() - t0
+    finally:
+        ReplicaProc._child_argv = prev_argv
+        htt.use_comm(prev_comm)
+        htt.fuse.clear_cache()
+        tmp.cleanup()
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
+    ap.add_argument("--replica", metavar="CONFIG",
+                    help="serve as a phase 17 fleet replica (spawned by the fleet, not run by hand)")
     args = ap.parse_args(argv)
+    if args.replica is not None:
+        return replica(args.replica)
 
     import torch
 
@@ -4178,6 +4591,16 @@ def run(dev, out_path=None) -> int:
             row.setdefault("launches_by_phase", {})["16"] = serve_launches[row["name"]]
             row["launches"] += serve_launches[row["name"]]
     print(f"phase 16: {serve_metrics['phase16_s']:.1f} s; launches {serve_launches} [{card}]")
+    # ---------------------------------------------------------------- 17
+    t17 = time.perf_counter()
+    fleet_launches, fleet_metrics = phase_fleet(torch, htt, dev, data, counted, card)
+    fleet_metrics["phase17_s"] = time.perf_counter() - t17
+    check(not any(fleet_launches.values()), f"phase 17 launched {fleet_launches}: the fleet runs no B1-B4")
+    for row in kernel_rows:
+        if row["name"] in fleet_launches:
+            row.setdefault("launches_by_phase", {})["17"] = fleet_launches[row["name"]]
+            row["launches"] += fleet_launches[row["name"]]
+    print(f"phase 17: {fleet_metrics['phase17_s']:.1f} s; launches {fleet_launches} [{card}]")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -4200,6 +4623,7 @@ def run(dev, out_path=None) -> int:
         **fuse_metrics,
         **redist_metrics,
         **serve_metrics,
+        **fleet_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

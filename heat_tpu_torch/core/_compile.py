@@ -19,7 +19,10 @@ is the reference's accounting around it:
   key's first call, the ``compile`` event with the reference's fields:
   ``trace_lower_s`` is the time ``make_fn()`` took and ``compile_s`` is
   0.0, because nothing is compiled.  With telemetry off no key is built
-  or kept: a call costs its dispatch count and nothing else.
+  or kept: a call costs its dispatch count and nothing else.  Nor are
+  keys counted while a fused program that was already built runs its
+  trace again (:func:`_uncounted`): the reference replays the compiled
+  program and looks nothing up.
 
 Process-wide state whose value changes what a program computes (the
 collective-compression policy, the guard policy, the io prefetch switch)
@@ -29,6 +32,7 @@ joins every key here and every ``fuse`` key.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
 import types as _types
@@ -53,6 +57,8 @@ __all__ = [
 _SEEN: "OrderedDict[Tuple, _Site]" = OrderedDict()
 _MAX_KEYS = 4096
 _LOCK = threading.Lock()
+#: per thread: True while a built fused program runs its trace again
+_QUIET = threading.local()
 
 #: zero-arg providers whose tuples join every cache key
 _KEY_CONTEXT: list = []
@@ -158,7 +164,7 @@ def jitted(key: Tuple, make_fn: Callable[[], Callable]) -> Callable:
     on, ``key + context_token()`` is looked up among the keys seen so far
     and counted as a hit or a miss.
     """
-    if not _tel.enabled:
+    if not _tel.enabled or getattr(_QUIET, "on", False):
         return counted(make_fn())
     if _KEY_CONTEXT:
         key = key + context_token()
@@ -181,6 +187,20 @@ def jitted(key: Tuple, make_fn: Callable[[], Callable]) -> Callable:
         size = len(_SEEN)
     _tel.gauge("compile.cache.size", size)
     return _Entry(fn, site)
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Inside the block this thread's :func:`jitted` calls count no hit
+    or miss and keep no key (``htt.fuse`` runs a built program's trace
+    under it: on the CPU at every call after the first, on the card at
+    its capture)."""
+    prev = getattr(_QUIET, "on", False)
+    _QUIET.on = True
+    try:
+        yield
+    finally:
+        _QUIET.on = prev
 
 
 def clear_cache() -> None:

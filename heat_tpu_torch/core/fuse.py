@@ -240,7 +240,8 @@ class _Program:
     def trace(self, operands) -> List[torch.Tensor]:
         """Run ``fn`` under trace mode over ``operands`` (one per dynamic
         slot) and return its raw output tensors; the first run records
-        the output structure."""
+        the output structure, later runs leave the compile cache's
+        counters alone."""
         it = iter(operands)
         leaves = []
         for slot in self.slots:
@@ -253,7 +254,11 @@ class _Program:
             else:
                 leaves.append(slot[1])
         args, kwargs = _unflatten(self.treedef, iter(leaves))
-        with trace_mode():
+        # a program already built (or installed) is not built again: its
+        # op lookups are not the compile cache's misses or hits
+        replaying = (_compile._uncounted() if self.out_meta is not None
+                     else contextlib.nullcontext())
+        with trace_mode(), replaying:
             out = self.fn(*args, **kwargs)
             out_leaves: list = []
             out_treedef = _flatten(out, out_leaves)

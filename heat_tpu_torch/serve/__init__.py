@@ -15,11 +15,19 @@ one pipeline:
   for poisoned payloads, ``serve:*`` spans and queue/occupancy gauges;
 - :mod:`loadgen` — seeded open-loop load generation producing the
   ``serve_predictions_per_sec`` / ``serve_p99_ms`` headlines with an
-  in-run unbatched direct-predict twin as the bitwise golden.
-
-The reference's fleet (``fleet``, ``health``, ``wfq``, ``ingress``,
-``procfleet``: replica processes behind the ``net.wire`` RPC) is not
-ported yet.
+  in-run unbatched direct-predict twin as the bitwise golden;
+- :mod:`fleet` — fleet-scale elasticity on top of the engine: watermark
+  autoscaling over the queue/SLO signals, zero-cold-start replicas
+  installing AOT bundles from the registry sidecar, and seeded canary
+  rollout with a same-run stable golden twin;
+- :mod:`procfleet` / :mod:`ingress` / :mod:`wfq` / :mod:`health` — the
+  multi-process serving plane: replica OS processes (warm-started from
+  the sidecar, zero-compile asserted in each hello frame, placed on the
+  parent's device) behind a loopback length-prefixed RPC, per-tenant
+  weighted-fair admission, sticky sessions, a circuit breaker per
+  replica, kill -9 re-queue with a deterministic fleet reply ledger, the
+  asyncio ingress with its hedged client, and an aggregated per-replica
+  Prometheus endpoint.
 
 The contract underneath it all: a batched reply is BITWISE equal to the
 same request's unbatched predict, because every predict program in the
@@ -35,6 +43,9 @@ from .errors import (
     ServeDeadlineError,
     ServeOverloadError,
 )
+from .fleet import CanaryConfig, FleetEngine, WatermarkAutoscaler
+from .ingress import FleetMetricsServer, HedgePolicy, Ingress, IngressClient
+from .procfleet import ProcFleet, ReplicaProc
 from .registry import (
     ManifestError,
     ModelNotFoundError,
@@ -42,23 +53,35 @@ from .registry import (
     RegistryError,
     VersionNotFoundError,
 )
+from .wfq import TenantPolicy, WeightedFairQueue
 from . import loadgen
 
 __all__ = [
+    "CanaryConfig",
+    "FleetEngine",
+    "FleetMetricsServer",
+    "HedgePolicy",
+    "Ingress",
     "IngressBootError",
+    "IngressClient",
     "ManifestError",
     "MicroBatcher",
     "ModelNotFoundError",
     "ModelRegistry",
+    "ProcFleet",
     "RegistryError",
     "Reply",
+    "ReplicaProc",
     "Request",
     "ServeClosedError",
     "ServeDeadlineError",
     "ServeEngine",
     "ServeOverloadError",
     "StagingPool",
+    "TenantPolicy",
     "VersionNotFoundError",
+    "WatermarkAutoscaler",
+    "WeightedFairQueue",
     "bucket_rows",
     "loadgen",
     "pad_batch",

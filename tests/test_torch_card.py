@@ -60,6 +60,14 @@ positions killed after its second snapshot and resumed is bitwise the
 uninterrupted fit, the pair launching what the uninterrupted fit launches
 (it skips where ``h5py``, which the snapshots are written with, is not
 installed).
+
+The serving fleet: a one-replica ``ProcFleet`` on the card, its replica a
+process of ``chip_smoke.py --replica`` over ``chip_smoke.DiskRegistry``
+(the card has no ``h5py``): the hello reports zero fuse and compile
+misses with every bundle installed, the replica holds one CUDA context
+(``nvidia-smi``), its ledger equals the in-process ``FleetEngine``
+twin's, and kill -9 re-queues the whole un-acked set to a warm
+replacement.
 """
 
 import importlib
@@ -1370,5 +1378,69 @@ def test_served_predicts_on_card_bitwise_their_direct_twin(cuda_device, backgrou
         assert eng.stats()["dispatches_per_batch"] == 1.0
     finally:
         eng.close()
+        htt.use_comm(prev)
+        htt.fuse.clear_cache()
+
+
+@pytest.mark.gpu
+def test_procfleet_replica_on_card(cuda_device, tmp_path):
+    """One replica process on the card: zero-miss hello, its CUDA context
+    listed while it runs and gone after close, the ledger equal to the
+    in-process twin's CRCs; kill -9 while its worker holds a request (a
+    pinned straggle) re-queues all it held to a warm replacement."""
+    import time
+    import zlib
+
+    from heat_tpu_torch.core import communication as tcomm
+    from heat_tpu_torch.resilience import faults
+    from heat_tpu_torch.serve import FleetEngine, ProcFleet, ReplicaProc, ServeEngine
+
+    dev = torch.device("cuda", 0)
+    kw = dict(max_batch_rows=32, min_bucket=8)
+    prev, prev_argv = tcomm._default_comm, ReplicaProc._child_argv
+    htt.use_comm(htt.TorchCommunication([dev]))
+    ReplicaProc._child_argv = chip_smoke.replica_argv()
+    try:
+        base = chip_smoke.compute_apps()
+        rng = np.random.default_rng(19)
+        data = rng.standard_normal((2000, 8)).astype(np.float32)
+        reg = chip_smoke.DiskRegistry(str(tmp_path))
+        reg.publish("t", "km", htt.cluster.KMeans(n_clusters=4, max_iter=3, random_state=0).fit(
+            htt.array(data, split=0)))
+        src = ServeEngine(reg, **kw)
+        bundles = src.export_warm("t", "km", version=1)
+        src.close()
+        reg.publish_executables("t", "km", 1, bundles)
+        pays = [rng.standard_normal((r, 8)).astype(np.float32) for r in (1, 3, 5, 8, 13, 2, 32, 7)]
+        twin = FleetEngine(reg, warm_models=[("t", "km", 1)], **kw)
+        crcs = [zlib.crc32(twin.predict("t", "km", p, version=1).value.tobytes()) for p in pays]
+        twin.close()
+        with ProcFleet(str(tmp_path), n_replicas=1, warm_models=[("t", "km", 1)], **kw) as pf:
+            (rep,) = pf.alive()
+            assert (rep.hello["fuse_misses"], rep.hello["compile_misses"]) == (0, 0)
+            assert rep.hello["installed"] == len(bundles)
+            assert chip_smoke.check_contexts(base, [rep.pid], "card test") in ("pids", "count")
+            for i, p in enumerate(pays):
+                pf.submit("t", "km", p, version=1, request_id=f"a{i}")
+            pf.flush()
+            assert [c for _, c in pf.ledger()] == crcs
+            with faults.inject("slow_replica", site=f"replica{rep.index}", nth=1, delay=3.0):
+                for i, p in enumerate(pays):
+                    pf.submit("t", "km", p, version=1, request_id=f"k{i}")
+                time.sleep(0.5)  # the worker holds k0; the rest wait in its outbox
+                pf.kill_replica(rep.index)
+                rep.proc.wait(timeout=30)
+                pf.flush(timeout_s=300)
+            stats = pf.stats()
+            assert (stats["requeued"], stats["replica_losses"], stats["respawns"]) == (len(pays), 1, 1)
+            disp = [d for d in pf.disposition_ledger() if d[0].startswith("k")]
+            assert [d[1] for d in disp] == ["requeued-ok"] * len(pays)
+            assert [d[2] for d in disp] == crcs
+            (new,) = pf.alive()
+            assert (new.hello["fuse_misses"], new.hello["compile_misses"]) == (0, 0)
+            chip_smoke.check_contexts(base, [new.pid], "card test after kill -9")
+        chip_smoke.check_contexts(base, [], "card test after close")
+    finally:
+        ReplicaProc._child_argv = prev_argv
         htt.use_comm(prev)
         htt.fuse.clear_cache()

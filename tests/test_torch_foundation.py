@@ -46,10 +46,6 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
     "communication": {"init_multihost": "A3b"},
-    "serve": {n: "A17b" for n in (
-        "CanaryConfig", "FleetEngine", "FleetMetricsServer", "HedgePolicy", "Ingress",
-        "IngressClient", "ProcFleet", "ReplicaProc", "TenantPolicy", "WatermarkAutoscaler",
-        "WeightedFairQueue")},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
@@ -76,7 +72,7 @@ BASE_MODULES = [
     "resilience.resume", "resilience.elastic", "io", "io.stream", "datasets", "obs", "native",
     "comm", "comm._costs", "comm.overlap", "comm.redistribute",
     "net", "net.wire", "serve", "serve.errors", "serve.registry", "serve.batcher", "serve.engine",
-    "serve.loadgen",
+    "serve.loadgen", "serve.health", "serve.wfq", "serve.fleet", "serve.procfleet", "serve.ingress",
 ]
 
 

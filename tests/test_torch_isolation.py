@@ -78,6 +78,9 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.net.wire", "heat_tpu_torch.serve", "heat_tpu_torch.serve.errors",
         "heat_tpu_torch.serve.registry", "heat_tpu_torch.serve.batcher",
         "heat_tpu_torch.serve.engine", "heat_tpu_torch.serve.loadgen",
+        "heat_tpu_torch.serve.health", "heat_tpu_torch.serve.wfq", "heat_tpu_torch.serve.fleet",
+        "heat_tpu_torch.serve.procfleet", "heat_tpu_torch.serve.ingress",
+        "heat_tpu_torch.serve._replica_main",
     ]
     proc = _run(
         "import importlib, sys\n"
@@ -110,6 +113,60 @@ def test_fuse_and_aot_run_without_jax_or_heat_tpu():
         "assert aot.install_programs(bundles, comm=comm) == 2\n"
         "assert f(x).numpy().tobytes() == want.tobytes()\n"
         "assert htt.kurtosis(x, axis=0).numpy().tobytes() == k.tobytes()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_a_replica_serves_without_jax_or_heat_tpu(tmp_path):
+    """The replica body (``_replica_main.serve``) boots on two CPU
+    positions, warms from the port's sidecar, answers a predict, a stats
+    and a close frame from a parent thread, with neither jax nor heat_tpu
+    imported in its interpreter."""
+    proc = _run(
+        "import json, secrets, socket, sys, threading, numpy as np, heat_tpu_torch as htt\n"
+        "from heat_tpu_torch.net import wire\n"
+        "from heat_tpu_torch.serve import ModelRegistry, ServeEngine, _replica_main, procfleet\n"
+        "htt.use_comm(htt.TorchCommunication(['cpu'] * 2))\n"
+        "x = np.random.default_rng(0).normal(size=(32, 4)).astype(np.float32)\n"
+        "km = htt.cluster.KMeans(n_clusters=3, max_iter=3, random_state=0).fit(htt.array(x, split=0))\n"
+        f"reg = ModelRegistry({str(tmp_path / 'models')!r})\n"
+        "reg.publish('t', 'km', km)\n"
+        "src = ServeEngine(reg, min_bucket=8)\n"
+        "bundles = src.export_warm('t', 'km')\n"
+        "reg.publish_executables('t', 'km', 1, bundles)\n"
+        "src.close()\n"
+        "htt.fuse.clear_cache()\n"
+        "lis = socket.create_server(('127.0.0.1', 0))\n"
+        "cfg = {'port': lis.getsockname()[1], 'token': secrets.token_hex(4), 'replica': 0,\n"
+        "       'registry_root': reg.root, 'warm_models': [['t', 'km', 1]],\n"
+        "       'engine_kwargs': {'min_bucket': 8}, 'policy': procfleet._policy_snapshot(),\n"
+        "       'placement': procfleet._placement_snapshot()}\n"
+        "got = {}\n"
+        "def parent():\n"
+        "    conn, _ = lis.accept()\n"
+        "    got['hello'] = wire.recv_frame(conn)[0]\n"
+        "    wire.send_frame(conn, {'kind': 'predict', 'rid': 'r', 'tenant': 't', 'model': 'km',\n"
+        "                           'version': 1}, {'x': x[:5]})\n"
+        "    got['reply'] = wire.recv_frame(conn)\n"
+        "    wire.send_frame(conn, {'kind': 'stats'})\n"
+        "    got['stats'] = wire.recv_frame(conn)[0]\n"
+        "    wire.send_frame(conn, {'kind': 'close'})\n"
+        "    got['bye'] = wire.recv_frame(conn)[0]\n"
+        "t = threading.Thread(target=parent)\n"
+        "t.start()\n"
+        "assert _replica_main.serve(cfg, ModelRegistry(reg.root)) == 0\n"
+        "t.join(60)\n"
+        "h = got['hello']\n"
+        "assert (h['installed'], h['fuse_misses'], h['compile_misses']) == (len(bundles), 0, 0), h\n"
+        "msg, blobs = got['reply']\n"
+        "assert msg['kind'] == 'reply' and msg['trace_id'] == 'r'\n"
+        "assert blobs['y'].tobytes() == km.predict(htt.array(x[:5])).numpy().tobytes()\n"
+        "assert got['stats']['stats']['requests'] == 2 and got['bye']['kind'] == 'bye'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
         "assert not bad, bad\n"
