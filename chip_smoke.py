@@ -322,6 +322,31 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``unhedged_tail_p99_ms``, ``hedged_vs_unhedged`` and
    ``armed_idle_overhead_p99``.  No kernel of B1-B4 runs (the counts are
    set to 0 before the phase and must read 0 after it); ``phase17_s``.
+18. ``htt.autoshard`` (the static layout analysis, the solved plan, the
+   plan applied inside a fused program) as the reference benchmark's
+   ``autoshard_rates`` runs it, unreduced (bench.py:2048-2130): 1024 x 512
+   float32 ones, the dead 0 -> 1 -> None hop, then ``sqrt(abs(w + 1.0))``,
+   at 4 and 8 positions on the card.  Solved and its hand twin
+   (``htt.fuse`` of the same function) agree bitwise in values and split
+   metadata before any timing; each is one dispatch and one
+   ``cudaGraphLaunch`` a call; the plan is not None, elides exactly one
+   decision and models fewer wire bytes than the hand layout; the
+   telemetry wire ledger around one solved call equals the modeled bytes.
+   Printed: the plan's fingerprint, the first call's build split into
+   analysis, solve and capture, each call's wall time (median and
+   interquartile spread of 21) and profiler device time, and
+   ``autoshard_speedup`` = hand ms / solved ms.  Then the seven fixture
+   pipelines of ``tests/splitflow_pipelines.py`` at 4 positions under
+   ``"f32"`` and ``"int8_block"``, each solved call held bitwise to its
+   hand twin (the pipeline called eagerly), with B1 / B2 / dequantize_fma
+   / hop launches a call counted for the hand, the first and the steady
+   solved call and held to ``P18_RING``; ``svd_pipeline``'s solved call
+   runs in a process of its own (its capture is refused, as phase 14's
+   probe shows, and the refusal reaches the caller).  Then the ladder:
+   the reference's loopy pipeline gets no plan and the hand result; an
+   untraceable pipeline with telemetry on records ``autoshard.fallback``
+   with reason ``untraceable``.  The counts are set to 0 at the start;
+   ``phase18_s``.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -506,6 +531,153 @@ GRID_PLAN_SHAPE = (4096, 512)
 #: add (2), the grid's two compressed stages on 2 x 2 and 2 x 4 (4)
 P15_LAUNCHES = {"blockquant_quantize": 8, "blockquant_dequantize": 8,
                 "blockquant_dequantize_fma": 0, "blockquant_dequantize_add_quantize": 0}
+#: phase 18's copies of what it runs from the JAX package's tree (the card
+#: machine has no JAX): ``tests/splitflow_pipelines.py`` whole, ``bench.py``'s
+#: ``_autoshard_bench_pipeline`` (bench.py:2048-2063) and
+#: ``tests/test_autoshard.py``'s ``_loopy_pipeline``, each the same source
+#: with only its import line changed to ``heat_tpu_torch``
+#: (``tests/test_torch_autoshard.py`` checks).  The phase writes them into
+#: one file and imports it by path: ``htt.autoshard`` analyzes a pipeline's
+#: source file.
+AUTOSHARD_PIPELINES = r'''"""Oracle pipelines: the SAME source is analyzed statically and executed.
+
+tests/test_splitflow_oracle.py points the splitflow engine at this file,
+reads the inferred split for every local variable, then runs each
+pipeline on a real mesh and asserts the runtime ``.split`` matches the
+static inference exactly — at mesh sizes 1, 2, 4 and 8.  The resplit
+pipeline additionally reconciles the static comm-cost report against the
+telemetry wire-byte ledger.
+
+Keep every shape a literal and divisible by 8 so all mesh sizes shard
+evenly; the engine prices collectives from these literals.
+"""
+
+import heat_tpu_torch as ht
+
+__all__ = [
+    "svd_pipeline", "kmeans_pipeline", "lasso_pipeline", "gnb_pipeline",
+    "fused_pipeline", "resplit_pipeline", "staged_resplit_pipeline",
+]
+
+
+def _features(comm=None):
+    """Deterministic row-split design matrix, (64, 32) float32."""
+    flat = ht.arange(2048, dtype=ht.float32, split=0, comm=comm)
+    x = flat.reshape((64, 32))
+    return x
+
+
+def _labels(comm=None):
+    """Alternating binary labels aligned with the rows of _features."""
+    y = ht.arange(64, split=0, comm=comm) % 2
+    return y
+
+
+def svd_pipeline(comm=None):
+    a = _features(comm)
+    u, s, v = ht.linalg.svd(a)
+    return a, u, s, v
+
+
+def kmeans_pipeline(comm=None):
+    x = _features(comm)
+    km = ht.cluster.KMeans(n_clusters=2, max_iter=3, random_state=0)
+    km.fit(x)
+    labels = km.predict(x)
+    return x, labels
+
+
+def lasso_pipeline(comm=None):
+    x = _features(comm)
+    y = _labels(comm)
+    model = ht.regression.Lasso(lam=0.01, max_iter=5)
+    model.fit(x, y)
+    pred = model.predict(x)
+    return x, y, pred
+
+
+def gnb_pipeline(comm=None):
+    x = _features(comm)
+    y = _labels(comm)
+    model = ht.naive_bayes.GaussianNB()
+    model.fit(x, y)
+    pred = model.predict(x)
+    proba = model.predict_proba(x)
+    return x, y, pred, proba
+
+
+@ht.fuse
+def _fused_core(a, b):
+    c = a + b
+    d = ht.sqrt(ht.abs(c))
+    return d
+
+
+def fused_pipeline(comm=None):
+    a = ht.ones((64, 32), dtype=ht.float32, split=0, comm=comm)
+    b = ht.full((64, 32), 3.0, dtype=ht.float32, split=0, comm=comm)
+    out = _fused_core(a, b)
+    return a, b, out
+
+
+def resplit_pipeline(comm=None):
+    """Pure layout traffic — every byte it moves is statically priceable."""
+    x = ht.ones((64, 32), dtype=ht.float32, split=0, comm=comm)
+    y = x.resplit(1)
+    z = ht.zeros((32, 64), dtype=ht.float32, split=1, comm=comm)
+    w = z.resplit(0)
+    return x, y, z, w
+
+
+def staged_resplit_pipeline(comm=None):
+    """Hand layout with a DEAD intermediate hop — the autoshard win case.
+
+    ``t`` exists only to feed the second resplit, so the hand plan pays
+    0→1 plus 1→None while one 0→None all-gather suffices.  The solver
+    must find that (tests/test_autoshard.py prices both); the dead hop
+    is deliberate, hence the SPMD502 suppression.
+    """
+    x = _features(comm)
+    t = x.resplit(1)
+    w = t.resplit(None)  # spmdlint: disable=SPMD502
+    return x, w
+'''
+AUTOSHARD_BENCH = r'''def _autoshard_bench_pipeline(comm=None):
+    """Hand-layout pipeline with a DEAD staging hop — the autoshard win
+    case at bench scale (2 MB operand, shapes literal and divisible by
+    8 so every mesh shards evenly).  MODULE-LEVEL for the same
+    cache-stability reason as _bench_pipeline.  The hand resplits ARE
+    the benchmark's subject, hence the suppressions: SPMD502 flags the
+    dead intermediate hop and SPMD505 flags hand layout inside an
+    autoshard-wrapped function — both deliberate here, this is the twin
+    the solver must beat."""
+    import heat_tpu_torch as ht
+
+    x = ht.ones((1024, 512), dtype=ht.float32, split=0, comm=comm)
+    t = x.resplit(1)  # spmdlint: disable=SPMD505
+    w = t.resplit(None)  # spmdlint: disable=SPMD502,SPMD505
+    y = ht.sqrt(ht.abs(w + 1.0))
+    return x, y
+'''
+AUTOSHARD_LOOPY = r'''def _loopy_pipeline(comm=None):
+    x = ht.ones((64, 32), dtype=ht.float32, split=0, comm=comm)
+    for axis in (1, 0):
+        # deliberately summary-hostile: layout traffic under control flow
+        x = x.resplit(axis)  # spmdlint: disable=SPMD206
+    return (x,)
+'''
+#: phase 18: the fixtures' positions, the benchmark pipeline's (bench.py:
+#: 2066-2130 runs it on the mesh it is given), the wall-time calls of each
+#: timed program, and B1 / B2 / dequantize_fma / hop launches a call of each
+#: fixture under int8_block at 4 positions: the reference quantizes the
+#: fits' rings (KMeans: one error-feedback ring a step, 3 steps; GaussianNB:
+#: one ring of its moments), not Lasso's coordinate descent, and no resplit
+#: of these 8 KiB arrays (below the redistribution threshold eagerly,
+#: monolithic inside a trace)
+P18_POSITIONS = 4
+AUTOSHARD_BENCH_POSITIONS = (4, 8)
+P18_WALL_REPS = 21
+P18_RING = {"kmeans_pipeline": (6, 3, 3, 9), "gnb_pipeline": (1, 1, 0, 3)}
 #: phase 12's armed plans, each firing on the first allreduce: NaN and
 #: +Inf written to element 0, the 1e36 saturation, the bit-30 flip
 PHASE12_FAULTS = (("nonfinite", {}), ("nonfinite", {"value": float("inf")}), ("saturate", {}),
@@ -3227,7 +3399,9 @@ def replay_profile(torch, fn, tries: int = 3):
     kernel counts by name)``, the synchronize calls less those of the
     profiler's own fence.  The profiler drops a whole call's kernels now
     and then (PERF.md), never adds any: of ``tries`` profiled calls the
-    one with the most device time is kept."""
+    one with the most device time is kept, and each kernel's count is
+    its most over the tries (the call with the most device time has
+    been seen to lose one of its two quantize kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3252,7 +3426,9 @@ def replay_profile(torch, fn, tries: int = 3):
             kernels[evt.key] = kernels.get(evt.key, 0) + int(evt.count)
         return total / 1e3, syncs, graphs, kernels
 
-    ms, syncs, graphs, kernels = max((one(fn) for _ in range(tries)), key=lambda r: r[0])
+    runs = [one(fn) for _ in range(tries)]
+    ms, syncs, graphs, _ = max(runs, key=lambda r: r[0])
+    kernels = {k: max(r[3].get(k, 0) for r in runs) for r in runs for k in r[3]}
     return ms, syncs - one(lambda: None)[1], graphs, kernels
 
 
@@ -4348,6 +4524,242 @@ def phase_fleet(torch, htt, dev, data, counted, card):
     return launches, metrics
 
 
+def autoshard_module(tmpdir: str):
+    """Phase 18's pipelines as a module of their own: the carried sources
+    written into one file under ``tmpdir`` and imported from it by path."""
+    import importlib.util
+
+    path = os.path.join(tmpdir, "autoshard_pipelines.py")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write(AUTOSHARD_PIPELINES + "\n\n" + AUTOSHARD_BENCH + "\n\n" + AUTOSHARD_LOOPY)
+    spec = importlib.util.spec_from_file_location("autoshard_pipelines", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def on_card(dev, outs, what: str) -> None:
+    """Every array of ``outs`` lies on the card."""
+    for o in outs:
+        t = o.larray if hasattr(o, "larray") else o
+        check(t.device.type == dev.type, f"phase 18 {what}: a result lies on {t.device}, not the card")
+
+
+def twin_equal(a_outs, h_outs) -> bool:
+    """Values bitwise and split metadata equal, output by output."""
+    return len(a_outs) == len(h_outs) and all(
+        a.split == h.split and a.gshape == h.gshape and a.dtype == h.dtype and bitwise_equal(a._buffer, h._buffer)
+        for a, h in zip(a_outs, h_outs))
+
+
+def _autoshard_svd_probe_code(path: str, positions: int) -> str:
+    """``htt.autoshard(svd_pipeline)`` on the card under each precision, in
+    a process of its own (as phase 14 probes ``svd``'s capture): one line
+    each, ``CAPTURED <bitwise the hand twin>``, ``FUSETRACEERROR ...`` or
+    ``RAISED <the capture's error>``."""
+    return (
+        "import importlib.util, torch, heat_tpu_torch as htt\n"
+        f"spec = importlib.util.spec_from_file_location('autoshard_pipelines', {path!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        f"comm = htt.TorchCommunication([torch.device('cuda', 0)] * {positions})\n"
+        "for precision in ('f32', 'int8_block'):\n"
+        "    with htt.comm.collective_precision(precision):\n"
+        "        hand = mod.svd_pipeline(comm)\n"
+        "        try:\n"
+        "            got = htt.autoshard(mod.svd_pipeline)(comm)\n"
+        "            same = all(torch.equal(a._buffer, b._buffer) and a.split == b.split for a, b in zip(got, hand))\n"
+        "            print(precision, 'CAPTURED', same)\n"
+        "        except htt.FuseTraceError as e:\n"
+        "            print(precision, 'FUSETRACEERROR', str(e).splitlines()[0][:200])\n"
+        "        except RuntimeError as e:\n"
+        "            print(precision, 'RAISED', str(e).splitlines()[0][:200])\n"
+    )
+
+
+def phase_autoshard(torch, htt, cq, dev, counted, card):
+    """Phase 18 (see the module docstring).  Returns ``(launches,
+    metrics)``."""
+    import tempfile
+
+    from heat_tpu_torch.telemetry import _core as tel
+
+    auto_mod = __import__("importlib").import_module("heat_tpu_torch.core.autoshard")
+    fa = __import__("importlib").import_module("heat_tpu_torch.parallel.flash_attention")
+    kernels = list(counted) + [fa.flash_attention, fa.flash_attention_partial]
+    metrics = {}
+    tmp = tempfile.TemporaryDirectory(prefix="phase18-")
+    try:
+        mod = autoshard_module(tmp.name)
+        htt.fuse.clear_cache()
+        for f in kernels:
+            f.launches = 0
+
+        # ------------------------------------------------------------ 18.1
+        for p in AUTOSHARD_BENCH_POSITIONS:
+            comm = htt.TorchCommunication([dev] * p)
+            fn = mod._autoshard_bench_pipeline
+            auto, hand = htt.autoshard(fn), htt.fuse(fn)
+            t0 = time.perf_counter()
+            summary_ = auto._summarize()
+            t1 = time.perf_counter()
+            plan = auto.plan(comm)
+            t2 = time.perf_counter()
+            a_out = auto(comm)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            h_out = hand(comm)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            build = {"analysis_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3, "capture_ms": (t3 - t2) * 1e3,
+                     "hand_build_ms": (t4 - t3) * 1e3}
+            check(summary_ is not None and plan is not None,
+                  f"phase 18 bench at {p}: no plan (the plain rung): summary {summary_}")
+            check(auto._programs[auto_mod._policy_key(comm)][0] == "fused",
+                  f"phase 18 bench at {p}: rung {auto._programs[auto_mod._policy_key(comm)][0]}, want fused")
+            on_card(dev, a_out + h_out, f"bench at {p}")
+            check(twin_equal(a_out, h_out), f"phase 18 bench at {p}: solved != hand twin (values or split)")
+            elided = [d for d in plan["decisions"] if d["elide"]]
+            check(len(elided) == 1, f"phase 18 bench at {p}: {len(elided)} elided decisions, want 1")
+            check(plan["modeled_wire_bytes"] < plan["hand_wire_bytes"],
+                  f"phase 18 bench at {p}: modeled {plan['modeled_wire_bytes']} B not below the hand "
+                  f"layout's {plan['hand_wire_bytes']} B")
+            dispatches = []
+            for prog in (auto, hand):
+                # a window reads the count since its entry: read it at once
+                with htt.telemetry.counting_dispatches() as d:
+                    prog(comm)
+                    dispatches.append(d.count)
+            check(dispatches == [1, 1], f"phase 18 bench at {p}: dispatches solved/hand {dispatches}, want 1 each")
+            # the wire ledger around one solved call: the plan's modeled bytes
+            was = tel.is_enabled()
+            tel.enable()
+            tel.reset()
+            try:
+                auto(comm)
+                torch.cuda.synchronize()
+                counters = tel.snapshot()["counters"]
+            finally:
+                tel.reset()
+                (tel.enable if was else tel.disable)()
+            ledger = (counters.get("comm.wire_bytes", 0), counters.get("comm.exact_bytes", 0))
+            check(ledger == (plan["modeled_wire_bytes"], plan["modeled_exact_bytes"]),
+                  f"phase 18 bench at {p}: ledger {ledger} != modeled "
+                  f"{(plan['modeled_wire_bytes'], plan['modeled_exact_bytes'])}")
+            walls = {"solved": [], "hand": []}
+            for _ in range(P18_WALL_REPS):
+                for key, prog in (("solved", auto), ("hand", hand)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prog(comm)
+                    torch.cuda.synchronize()
+                    walls[key].append((time.perf_counter() - t0) * 1e3)
+            s_ms, s_spread = summary(walls["solved"])
+            h_ms, h_spread = summary(walls["hand"])
+            s_dev, s_syncs, s_graphs, _ = replay_profile(torch, lambda: auto(comm))
+            h_dev, h_syncs, h_graphs, _ = replay_profile(torch, lambda: hand(comm))
+            check(s_graphs == 1 and h_graphs == 1,
+                  f"phase 18 bench at {p}: cudaGraphLaunch a call solved {s_graphs}, hand {h_graphs}, want 1")
+            row = {**build, "fingerprint": plan["fingerprint"], "decisions": len(plan["decisions"]),
+                   "elided": len(elided), "modeled_wire_bytes": plan["modeled_wire_bytes"],
+                   "hand_wire_bytes": plan["hand_wire_bytes"], "ledger_wire_bytes": ledger[0],
+                   "solved_wall_ms": s_ms, "solved_spread_pct": s_spread, "hand_wall_ms": h_ms,
+                   "hand_spread_pct": h_spread, "solved_device_ms": s_dev, "hand_device_ms": h_dev,
+                   "solved_syncs": s_syncs, "hand_syncs": h_syncs, "graph_launches": [s_graphs, h_graphs],
+                   "autoshard_speedup": h_ms / s_ms,
+                   "device_speedup": h_dev / s_dev if s_dev else None}
+            metrics[f"autoshard_bench_{p}pos"] = row
+            print(f"phase 18 bench 1024x512 f32 at {p} positions: plan {plan['fingerprint']} ({len(plan['decisions'])}"
+                  f" decisions, {len(elided)} elided), modeled {plan['modeled_wire_bytes']} B against the hand "
+                  f"layout's {plan['hand_wire_bytes']} B, ledger {ledger[0]} B; cold build: analysis "
+                  f"{build['analysis_ms']:.1f} ms, solve {build['solve_ms']:.2f} ms, capture "
+                  f"{build['capture_ms']:.1f} ms (hand fuse {build['hand_build_ms']:.1f} ms); solved "
+                  f"{s_ms:.4f} ms wall (spread {s_spread}%), {s_dev:.4f} ms device; hand {h_ms:.4f} ms wall "
+                  f"(spread {h_spread}%), {h_dev:.4f} ms device; autoshard_speedup {h_ms / s_ms:.3f}; "
+                  f"1 dispatch and 1 cudaGraphLaunch a call each; bitwise [{card}]")
+
+        # ------------------------------------------------------------ 18.2
+        comm = htt.TorchCommunication([dev] * P18_POSITIONS)
+        per = {}
+        rungs = {}
+        for precision in ("f32", "int8_block"):
+            for name in sorted(mod.__all__):
+                fn = getattr(mod, name)
+                auto = htt.autoshard(fn)
+                calls = {}
+                with cq.collective_precision(precision):
+                    before = [f.launches for f in counted]
+                    hand = fn(comm)
+                    torch.cuda.synchronize()
+                    calls["hand"] = tuple(f.launches - b for f, b in zip(counted, before))
+                    on_card(dev, hand, f"{name} hand")
+                    # svd's capture is refused on the card (it reads and copies
+                    # on the host, as phase 14's probe shows): its solved call
+                    # runs in the probe below, in a process of its own
+                    for call in () if name == "svd_pipeline" else ("solved", "steady"):
+                        before = [f.launches for f in counted]
+                        got = auto(comm)
+                        torch.cuda.synchronize()
+                        calls[call] = tuple(f.launches - b for f, b in zip(counted, before))
+                        on_card(dev, got, f"{name} solved")
+                        check(twin_equal(got, hand), f"phase 18 {name} {precision}: solved != hand twin, bitwise")
+                    entry = auto._programs.get(auto_mod._policy_key(comm))
+                    rungs[f"{name}_{precision}"] = entry[0] if entry else "probe"
+                want = P18_RING.get(name, (0, 0, 0, 0)) if precision == "int8_block" else (0, 0, 0, 0)
+                for call, got in calls.items():
+                    check(got == want, f"phase 18 {name} {precision} {call}: launches B1/B2/fma/hop {got}, want {want}")
+                per[f"{name}_{precision}"] = {k: list(v) for k, v in calls.items()}
+        for name in P18_RING:
+            check(per[f"{name}_int8_block"]["hand"][0] > 0, f"phase 18 {name}: no B1 launch under int8_block")
+        torch.cuda.synchronize()
+        launches = {f"blockquant_{f.__name__.removesuffix('_blocks')}": f.launches for f in counted}
+        launches.update({f.__name__: f.launches for f in kernels[len(counted):]})
+        proc = subprocess.run([sys.executable, "-c", _autoshard_svd_probe_code(mod.__file__, P18_POSITIONS)],
+                              capture_output=True, text=True, timeout=300)
+        probe = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and len(probe) == 2, f"phase 18 svd probe: rc {proc.returncode}, "
+              f"{probe or proc.stderr.strip()[-300:]}")
+        for line in probe:
+            precision, outcome = line.split(" ", 2)[:2]
+            check(line.endswith("CAPTURED True") or (outcome == "RAISED" and "as a CUDA graph failed" in line),
+                  f"phase 18 svd_pipeline {precision}: {line}")
+            rungs[f"svd_pipeline_{precision}"] = "fused" if outcome == "CAPTURED" else "refused (RuntimeError)"
+        metrics["autoshard_fixtures"] = per
+        metrics["autoshard_rungs"] = rungs
+        metrics["autoshard_svd_probe"] = probe
+        print(f"phase 18 fixtures at {P18_POSITIONS} positions, f32 and int8_block: solved bitwise the hand "
+              f"twin, no plan reroutes a quantized hop; rungs {rungs}; svd's solved call in a process of its "
+              f"own: {probe}; B1/B2/fma/hop a call under int8_block "
+              + ", ".join(f"{n} " + " ".join(f"{k} {v}" for k, v in per[n + '_int8_block'].items())
+                          for n in sorted(mod.__all__))
+              + f" [{card}]")
+
+        # ------------------------------------------------------------ 18.3
+        loopy = htt.autoshard(mod._loopy_pipeline)
+        check(loopy.plan(comm) is None, "phase 18 loopy pipeline: a plan was solved, want None")
+        got, want = loopy(comm), mod._loopy_pipeline(comm)
+        on_card(dev, got, "loopy")
+        check(twin_equal(got, want), "phase 18 loopy pipeline: != the hand result")
+        was = tel.is_enabled()
+        tel.enable()
+        tel.reset()
+        try:
+            untraceable = htt.autoshard(mod.kmeans_pipeline)
+            check(twin_equal(untraceable(comm), mod.kmeans_pipeline(comm)), "phase 18 untraceable: != hand")
+            falls = [e for e in tel.events() if e["type"] == "autoshard.fallback"]
+        finally:
+            tel.reset()
+            (tel.enable if was else tel.disable)()
+        check([e["reason"] for e in falls] == ["untraceable"],
+              f"phase 18 untraceable pipeline: fallback events {falls}")
+        print(f"phase 18 ladder: the loopy pipeline plain (plan None, the hand result); kmeans_pipeline eager "
+              f"with autoshard.fallback reason untraceable [{card}]")
+    finally:
+        htt.fuse.clear_cache()
+        tmp.cleanup()
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -4601,6 +5013,15 @@ def run(dev, out_path=None) -> int:
             row.setdefault("launches_by_phase", {})["17"] = fleet_launches[row["name"]]
             row["launches"] += fleet_launches[row["name"]]
     print(f"phase 17: {fleet_metrics['phase17_s']:.1f} s; launches {fleet_launches} [{card}]")
+    # ---------------------------------------------------------------- 18
+    t18 = time.perf_counter()
+    auto_launches, auto_metrics = phase_autoshard(torch, htt, cq, dev, counted, card)
+    auto_metrics["phase18_s"] = time.perf_counter() - t18
+    for row in kernel_rows:
+        if row["name"] in auto_launches:
+            row.setdefault("launches_by_phase", {})["18"] = auto_launches[row["name"]]
+            row["launches"] += auto_launches[row["name"]]
+    print(f"phase 18: {auto_metrics['phase18_s']:.1f} s; launches {auto_launches} [{card}]")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -4624,6 +5045,7 @@ def run(dev, out_path=None) -> int:
         **redist_metrics,
         **serve_metrics,
         **fleet_metrics,
+        **auto_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core._compile import jitted
+from ..core._tracing import require_concrete
 from ..core import types
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
@@ -162,7 +163,12 @@ class KMeans(_KCluster):
         residual.  With ``mini_batch=`` set, or ``x`` a stream source, the
         fit streams chunks instead; ``comm``/``device`` place a stream
         input (a DNDarray brings its own).
+
+        A fit cannot be traced into a fused program (``htt.fuse``,
+        ``htt.autoshard``): each step's convergence test is read on the
+        host, so under a trace it raises ``FuseTraceError``.
         """
+        require_concrete("KMeans.fit (its convergence test is read on the host each step)")
         from ..io import stream as _stream
 
         if isinstance(x, _stream.StreamSource) or self.mini_batch is not None:

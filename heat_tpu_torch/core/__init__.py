@@ -14,6 +14,8 @@ from .sanitation import *  # noqa: F401,F403
 from .dndarray import *  # noqa: F401,F403
 from . import fuse as _fuse_module
 from .fuse import *  # noqa: F401,F403
+from . import autoshard as _autoshard_module
+from .autoshard import *  # noqa: F401,F403
 from . import factories
 from .factories import *  # noqa: F401,F403
 from . import arithmetics

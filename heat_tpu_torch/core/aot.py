@@ -10,8 +10,10 @@ through ``ctypes`` are opaque to ``torch.export``.  So a bundle holds the
 **recipe** of a program, not an executable:
 
 - the function's module and qualname;
-- ``donate``, the plan token, the treedef, the keyparts and ``out_meta``,
-  with the live communicator replaced by a sentinel;
+- ``donate``, the plan token and the plan's decisions (a solved
+  ``htt.autoshard`` layout, which the install traces under), the
+  treedef, the keyparts and ``out_meta``, with the live communicator
+  replaced by a sentinel;
 - the operand specs (shape, dtype);
 - ``guarded``.
 
@@ -152,6 +154,7 @@ def export_programs(capture: Dict[Tuple, Dict[str, Any]]) -> List[Dict[str, Any]
             "fn": (fn.__module__, fn.__qualname__),
             "donate": entry["donate"],
             "plan_token": entry["plan_token"],
+            "plan": program.plan,
             "treedef": entry["treedef"],
             "keyparts": _swap_comm(entry["keyparts"], comm, live=False),
             "comm_size": int(comm.size),
@@ -218,7 +221,8 @@ def install_programs(bundles: List[Dict[str, Any]], *, comm) -> int:
         except (ImportError, AttributeError):
             continue
         keyparts = _swap_comm(bundle["keyparts"], comm, live=True)
-        program = _fuse._Program(fn, _slots(keyparts), bundle["treedef"], _fuse._indexed(comm.device))
+        program = _fuse._Program(fn, _slots(keyparts), bundle["treedef"], _fuse._indexed(comm.device),
+                                 bundle.get("plan"))
         program.out_treedef = bundle["out_treedef"]
         program.out_meta = _swap_comm(bundle["out_meta"], comm, live=True)
         program.guarded = bool(bundle["guarded"])

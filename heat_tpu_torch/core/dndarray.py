@@ -861,7 +861,11 @@ class DNDarray:
 
     def resplit(self, axis=None) -> "DNDarray":
         """A copy laid out at ``axis`` (``None``: replicated; a splits
-        tuple on a grid)."""
+        tuple on a grid).  Under a solved ``htt.autoshard`` plan the
+        placement is the plan's."""
+        from . import manipulations
+
+        axis = manipulations._planned_axis(self, axis)
         try:
             same = self.__comm.normalize_splits(self.ndim, axis) == self.__splits
         except (IndexError, ValueError):
@@ -879,7 +883,7 @@ class DNDarray:
         """Lay this array out at ``axis`` (or a splits tuple), in place."""
         from . import manipulations
 
-        res = manipulations.resplit(self, axis)
+        res = manipulations._resplit(self, axis)
         if res.splits != self.__splits:
             self._rebind(res)
         return self

@@ -217,17 +217,20 @@ class _Program:
 
     ``guarded`` marks programs traced under an active health-guard
     policy: they carry one extra output, the on-device health flag over
-    every inexact result buffer.
+    every inexact result buffer.  ``plan`` is a solved layout plan's
+    decisions: every trace (the warm-up and the capture alike) runs under
+    them afresh, since a trace consumes the overrides it applies.
     """
 
-    __slots__ = ("fn", "slots", "treedef", "device", "out_treedef", "out_meta", "guarded",
-                 "static_in", "static_out", "graph", "in_bytes", "pool")
+    __slots__ = ("fn", "slots", "treedef", "device", "plan", "out_treedef", "out_meta",
+                 "guarded", "static_in", "static_out", "graph", "in_bytes", "pool")
 
-    def __init__(self, fn: Callable, slots: Tuple, treedef, device: torch.device):
+    def __init__(self, fn: Callable, slots: Tuple, treedef, device: torch.device, plan=None):
         self.fn = fn
         self.slots = slots
         self.treedef = treedef
         self.device = device
+        self.plan = plan
         self.out_treedef = None
         self.out_meta = None
         self.guarded = False
@@ -258,7 +261,9 @@ class _Program:
         # op lookups are not the compile cache's misses or hits
         replaying = (_compile._uncounted() if self.out_meta is not None
                      else contextlib.nullcontext())
-        with trace_mode(), replaying:
+        planned = (applying_layout_plan(self.plan) if self.plan is not None
+                   else contextlib.nullcontext())
+        with trace_mode(), replaying, planned:
             out = self.fn(*args, **kwargs)
             out_leaves: list = []
             out_treedef = _flatten(out, out_leaves)
@@ -395,8 +400,11 @@ class _FusedFunction:
             # enclosing trace instead of building a second program
             return self._fn(*args, **kwargs)
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-            # inside a CUDA graph the caller is capturing: traced into it
-            with trace_mode():
+            # inside a CUDA graph the caller is capturing: traced into it,
+            # under the program's layout plan as any trace of it
+            planned = (applying_layout_plan(self._layout_plan["decisions"])
+                       if self._layout_plan is not None else contextlib.nullcontext())
+            with trace_mode(), planned:
                 return self._fn(*args, **kwargs)
         leaves: list = []
         treedef = _flatten((args, kwargs), leaves)
@@ -444,7 +452,8 @@ class _FusedFunction:
         if building:
             if _tel.enabled:
                 _tel.inc("fuse.cache.misses")
-            program = _Program(self._fn, slots, treedef, device)
+            program = _Program(self._fn, slots, treedef, device,
+                               self._layout_plan["decisions"] if self._layout_plan else None)
         elif _tel.enabled:
             _tel.inc("fuse.cache.hits")
 
@@ -454,17 +463,12 @@ class _FusedFunction:
         if _CAPTURE_SINKS and key is not None:
             capture_specs = tuple((tuple(op.shape), str(op.dtype)) for op in operands)
 
-        plan_ctx = (
-            applying_layout_plan(self._layout_plan["decisions"])
-            if self._layout_plan is not None else contextlib.nullcontext()
-        )
-        with plan_ctx:
-            if _tel.enabled:
-                site = "fuse:build" if building else "fuse:replay"
-                with _tel.span(site, name=name):
-                    raws = program.run(operands, self._donate, name)
-            else:
+        if _tel.enabled:
+            site = "fuse:build" if building else "fuse:replay"
+            with _tel.span(site, name=name):
                 raws = program.run(operands, self._donate, name)
+        else:
+            raws = program.run(operands, self._donate, name)
         if building and key is not None:
             program = _admit(key, program)
         record_dispatch()

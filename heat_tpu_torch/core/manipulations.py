@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from . import factories, types
+from ._tracing import NO_OVERRIDE, consume_layout_override, layout_plan_active
 from .dndarray import DNDarray
 from .sanitation import sanitize_in
 from .stride_tricks import sanitize_axis
@@ -283,12 +284,35 @@ def reshape(a: DNDarray, shape, new_split: Optional[int] = None, **kwargs) -> DN
     return _rewrap(a, garr, new_split, a.dtype)
 
 
+def _planned_axis(arr: DNDarray, axis):
+    """``axis``, or the placement a solved ``htt.autoshard`` plan gives a
+    resplit of this signature (shape, dtype name, src, requested dst).
+
+    Resplits the plan never priced (the implicit reshard of a binary op)
+    get no override and run as written; an override equal to
+    ``arr.split`` elides the hop through the same-layout early-out.  On a
+    grid, or for a splits tuple, the plan has no say (its seam is 1-D)."""
+    if not layout_plan_active() or arr.comm.mesh_ndim > 1 or isinstance(axis, (tuple, list)):
+        return axis
+    requested = sanitize_axis(arr.shape, axis) if axis is not None else None
+    override = consume_layout_override(
+        arr.shape, getattr(arr.dtype, "__name__", str(arr.dtype)), arr.split, requested)
+    return axis if override is NO_OVERRIDE else override
+
+
 def resplit(arr: DNDarray, axis=None) -> DNDarray:
     """The array laid out at ``axis`` (None: replicated); the same layout
     shares the at-rest buffer.  ``axis`` may be a splits tuple, the grid's
     spelling (on one mesh axis it is its ``split`` int); on a grid an int
-    lays the array out over mesh axis 0 alone."""
+    lays the array out over mesh axis 0 alone.  Under a solved
+    ``htt.autoshard`` plan the placement is the plan's."""
     sanitize_in(arr)
+    return _resplit(arr, _planned_axis(arr, axis))
+
+
+def _resplit(arr: DNDarray, axis) -> DNDarray:
+    """:func:`resplit` at exactly ``axis``: no plan is consulted (the
+    in-place ``resplit_`` takes this path, as in the reference)."""
     comm = arr.comm
     if isinstance(axis, (tuple, list)) or comm.mesh_ndim > 1:
         if not isinstance(axis, (tuple, list)):

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from ..core import factories, types
 from ..core.base import BaseEstimator, RegressionMixin
-from ..core._tracing import record_dispatch
+from ..core._tracing import record_dispatch, require_concrete
 from ..core.dndarray import DNDarray
 from ..core.fuse import fuse
 from ..core.sanitation import sanitize_in, sanitize_predict_in
@@ -204,7 +204,10 @@ class Lasso(RegressionMixin, BaseEstimator):
         another number of positions.  With ``mini_batch=`` set, or stream
         sources as inputs, the gd fit streams chunks instead;
         ``comm``/``device`` place stream inputs (DNDarrays bring their
-        own)."""
+        own).  A fit cannot be traced into a fused program: each sweep's
+        convergence test is read on the host, so under a trace it raises
+        ``FuseTraceError``."""
+        require_concrete("Lasso.fit (its convergence test is read on the host each sweep)")
         from ..io import stream as _stream
 
         if (

@@ -1444,3 +1444,26 @@ def test_procfleet_replica_on_card(cuda_device, tmp_path):
         ReplicaProc._child_argv = prev_argv
         htt.use_comm(prev)
         htt.fuse.clear_cache()
+
+
+@pytest.mark.gpu
+def test_autoshard_bench_pipeline_solved_bitwise_its_hand_twin(cuda_device, tmp_path):
+    """``htt.autoshard`` of the reference benchmark's pipeline at 4
+    positions on the card: bitwise its hand twin (``htt.fuse`` of the same
+    function) in values and split metadata, one elided hop, and one
+    ``cudaGraphLaunch`` a call each."""
+    mod = chip_smoke.autoshard_module(str(tmp_path))
+    comm = htt.TorchCommunication([cuda_device] * 4)
+    auto = htt.autoshard(mod._autoshard_bench_pipeline)
+    hand = htt.fuse(mod._autoshard_bench_pipeline)
+    try:
+        plan = auto.plan(comm)
+        assert plan is not None and sum(d["elide"] for d in plan["decisions"]) == 1
+        got, want = auto(comm), hand(comm)
+        chip_smoke.on_card(cuda_device, got + want, "card test")
+        assert chip_smoke.twin_equal(got, want)
+        for prog in (auto, hand):
+            _, _, graphs, _ = chip_smoke.replay_profile(torch, lambda: prog(comm), tries=1)
+            assert graphs == 1
+    finally:
+        htt.fuse.clear_cache()

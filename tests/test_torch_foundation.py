@@ -46,6 +46,8 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
     "communication": {"init_multihost": "A3b"},
+    # the file-scope linter's baseline file (A18b)
+    "analysis": {"load_baseline": "A18b", "partition": "A18b", "write_baseline": "A18b"},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
@@ -59,7 +61,7 @@ PORTED_MODULES = [
     "arithmetics", "factories", "indexing", "printing", "dndarray", "_operations", "base",
     "exponential", "logical", "relational", "rounding", "statistics", "trigonometrics", "random",
     "linalg.basics", "linalg.qr", "linalg.svd", "linalg.solver", "manipulations", "tiling",
-    "io", "checkpoint", "_tracing", "_compile", "fuse", "aot", "_split_semantics",
+    "io", "checkpoint", "_tracing", "_compile", "fuse", "aot", "_split_semantics", "autoshard",
 ]
 
 
@@ -73,6 +75,9 @@ BASE_MODULES = [
     "comm", "comm._costs", "comm.overlap", "comm.redistribute",
     "net", "net.wire", "serve", "serve.errors", "serve.registry", "serve.batcher", "serve.engine",
     "serve.loadgen", "serve.health", "serve.wfq", "serve.fleet", "serve.procfleet", "serve.ingress",
+    "analysis", "analysis.core", "analysis.rules", "analysis.splitflow", "analysis.splitflow.domain",
+    "analysis.splitflow.transfer", "analysis.splitflow.registry", "analysis.splitflow.engine",
+    "analysis.splitflow.summary", "analysis.splitflow.report", "analysis.splitflow.checkers",
 ]
 
 
@@ -121,7 +126,7 @@ def test_surface_equals_reference_less_waiting_names(name):
 #: the package-level names that differ on purpose (C11): the reference's
 #: waiting names with the queue item that brings them, the names it leaks,
 #: its communicator's name, and the port's own names
-TOP_WAITING = {"autoshard": "A15b", "init_multihost": "A3b"}
+TOP_WAITING = {"init_multihost": "A3b"}
 TOP_REF_LEAKS = {"basics", "solver"}
 TOP_RENAMED = {"XlaCommunication": "TorchCommunication", "heat_tpu": "heat_tpu_torch"}
 #: ``interop`` is imported by the port's package (the reference leaves

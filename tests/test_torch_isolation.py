@@ -80,7 +80,12 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.serve.engine", "heat_tpu_torch.serve.loadgen",
         "heat_tpu_torch.serve.health", "heat_tpu_torch.serve.wfq", "heat_tpu_torch.serve.fleet",
         "heat_tpu_torch.serve.procfleet", "heat_tpu_torch.serve.ingress",
-        "heat_tpu_torch.serve._replica_main",
+        "heat_tpu_torch.serve._replica_main", "heat_tpu_torch.core.autoshard",
+        "heat_tpu_torch.analysis", "heat_tpu_torch.analysis.core", "heat_tpu_torch.analysis.rules",
+        "heat_tpu_torch.analysis.splitflow", "heat_tpu_torch.analysis.splitflow.domain",
+        "heat_tpu_torch.analysis.splitflow.transfer", "heat_tpu_torch.analysis.splitflow.registry",
+        "heat_tpu_torch.analysis.splitflow.engine", "heat_tpu_torch.analysis.splitflow.summary",
+        "heat_tpu_torch.analysis.splitflow.report", "heat_tpu_torch.analysis.splitflow.checkers",
     ]
     proc = _run(
         "import importlib, sys\n"
@@ -328,3 +333,37 @@ def test_float32_matmuls_run_without_tf32():
         "print('ok')\n"
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_autoshard_runs_without_jax_or_heat_tpu(tmp_path):
+    """``htt.autoshard`` analyzes, solves and runs a staged pipeline on
+    CPU positions (the static analysis and the by-path cost model
+    included), with neither jax nor heat_tpu imported."""
+    src = tmp_path / "staged.py"
+    src.write_text(
+        "import heat_tpu_torch as ht\n\n\n"
+        "def staged(comm=None):\n"
+        "    x = ht.ones((64, 32), dtype=ht.float32, split=0, comm=comm)\n"
+        "    t = x.resplit(1)\n"
+        "    w = t.resplit(None)\n"
+        "    return x, w\n"
+    )
+    proc = _run(
+        "import sys, importlib.util, heat_tpu_torch as htt\n"
+        "htt.use_device('cpu')\n"
+        f"spec = importlib.util.spec_from_file_location('staged', {str(src)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "comm = htt.TorchCommunication(['cpu'] * 4)\n"
+        "auto = htt.autoshard(mod.staged)\n"
+        "plan = auto.plan(comm)\n"
+        "assert plan['modeled_wire_bytes'] < plan['hand_wire_bytes'], plan\n"
+        "x, w = auto(comm)\n"
+        "assert w.split is None and (w.numpy() == 1).all()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
