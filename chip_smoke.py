@@ -347,6 +347,24 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    untraceable pipeline with telemetry on records ``autoshard.fallback``
    with reason ``untraceable``.  The counts are set to 0 at the start;
    ``phase18_s``.
+19. the port's linter and its capture rules on the card.  (1) ``python -m
+   heat_tpu_torch.analysis.cli --baseline`` over the whole
+   ``heat_tpu_torch`` tree in a subprocess, with a fresh findings cache:
+   cold, warm and warm with ``--format json``; each exits 0 with 0 new
+   findings against the committed empty baseline, the warm run's cache
+   hits every file and misses none, the JSON parses to 0 findings.
+   Printed: files analyzed, findings, the cold and warm seconds.  (2) the
+   ground truth of ``tests/test_torch_capture_rules.py`` (imported from
+   the checkout; it imports no jax): its SPMD202 positives fused at one
+   position in a process of their own, each capture refused with the
+   error reaching the caller (its type printed); its SPMD201/205
+   positives each give two equal fused calls where two eager calls
+   differ (the host value frozen at capture); its SPMD210 positive
+   records its observation at the first call's warm-up and capture and
+   never at a replay; its negatives each capture, replay as one
+   ``cudaGraphLaunch`` a call and give their eager call's bits.  No
+   kernel of B1-B4 runs (the counts are set to 0 before the phase and
+   must read 0 after it); ``phase19_s``.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -4760,6 +4778,126 @@ def phase_autoshard(torch, htt, cq, dev, counted, card):
     return launches, metrics
 
 
+#: the ground-truth file of the capture rules, in the checkout
+CAPTURE_RULES_FILE = os.path.join("tests", "test_torch_capture_rules.py")
+_LINT_LINE = (r"spmdlint: (\d+) new, (\d+) baselined, (\d+) stale baseline entries  "
+              r"\[([0-9.]+)s, cache (\d+) hit, (\d+) miss\]")
+
+
+def _root() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def capture_rules_module():
+    """``tests/test_torch_capture_rules.py``, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("capture_rules", os.path.join(_root(), CAPTURE_RULES_FILE))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lint_run(cache_dir: str, *args):
+    """One run of the port's linter CLI over its package against the
+    committed baseline: ``(completed process, wall seconds)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "heat_tpu_torch.analysis.cli", "--baseline",
+                           "--cache-dir", cache_dir, *args], capture_output=True, text=True, timeout=600,
+                          cwd=_root())
+    return proc, time.perf_counter() - t0
+
+
+def capture_ground_truth(torch, dev, card: str) -> dict:
+    """Part (2) of phase 19: each capture-rule fixture held to what its
+    finding means on the card.  Returns the metrics."""
+    import re
+
+    mod = capture_rules_module()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(_root(), CAPTURE_RULES_FILE), "--refused"],
+                          capture_output=True, text=True, timeout=300, cwd=_root())
+    check(proc.returncode == 0, f"phase 19 refused captures: rc {proc.returncode}, {proc.stderr.strip()[-400:]}")
+    refused = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(sorted(refused) == sorted(mod.REFUSED), f"phase 19 refused captures: cases {sorted(refused)}")
+    for name, row in refused.items():
+        check(row["raised"], f"phase 19 {name}: the capture was not refused (SPMD202 says it reads the host)")
+        check(re.search(r"capturing|capture|FuseTraceError", row["message"] + row["error"]) is not None,
+              f"phase 19 {name}: raised {row['error']}: {row['message']}, not a capture refusal")
+    refused_s = time.perf_counter() - t0
+    frozen = mod.run_frozen(dev)
+    for name, row in frozen.items():
+        check(row["fused_equal"] and row["eager_differ"],
+              f"phase 19 {name}: fused calls equal {row['fused_equal']}, eager calls differ {row['eager_differ']}")
+    observed = mod.run_observed(dev)
+    check(observed["after_first"] >= 1 and observed["after_all"] == observed["after_first"],
+          f"phase 19 pos_observe: {observed} (observations at capture only, none a replay)")
+    clean = mod.run_clean(dev)
+    t = mod.operand(dev)
+    for name, row in clean.items():
+        row["graph_launches"] = replay_profile(torch, lambda: getattr(mod, name)(t), tries=1)[2]
+        check(row["bitwise"] and row["graph_launches"] == 1,
+              f"phase 19 {name}: bitwise {row['bitwise']}, cudaGraphLaunch a call {row['graph_launches']}")
+    torch.cuda.synchronize()
+    print(f"phase 19 capture rules at 1 position: SPMD202 positives refused "
+          + ", ".join(f"{n} {r['error']}" for n, r in sorted(refused.items()))
+          + f" ({refused_s:.1f} s in a process of their own); SPMD201/205 positives frozen at capture "
+          f"({', '.join(sorted(frozen))}: 2 fused calls equal, 2 eager calls differ); SPMD210 positive "
+          f"{observed['after_first']} observations at the first call, {observed['after_all']} after "
+          f"{observed['calls']} calls; negatives {', '.join(sorted(clean))} bitwise eager, 1 "
+          f"cudaGraphLaunch a call [{card}]")
+    return {"capture_refused": {n: f"{r['error']}: {r['message'][:200]}" for n, r in refused.items()},
+            "capture_frozen": frozen,
+            "capture_observed": observed, "capture_clean": clean}
+
+
+def phase_linter(torch, htt, cq, dev, counted, card):
+    """Phase 19 (see the module docstring).  Returns ``(launches,
+    metrics)``."""
+    import re
+    import tempfile
+
+    fa = __import__("importlib").import_module("heat_tpu_torch.parallel.flash_attention")
+    kernels = list(counted) + [fa.flash_attention, fa.flash_attention_partial]
+    for f in kernels:
+        f.launches = 0
+    metrics = {}
+    with tempfile.TemporaryDirectory(prefix="phase19-") as tmp:
+        cache = os.path.join(tmp, "cache")
+        from heat_tpu_torch.analysis import iter_py_files
+
+        files = sum(1 for _ in iter_py_files([os.path.join(_root(), "heat_tpu_torch")]))
+        runs = {}
+        for label in ("cold", "warm"):
+            proc, secs = lint_run(cache)
+            check(proc.returncode == 0, f"phase 19 linter {label}: exit {proc.returncode}: "
+                  f"{(proc.stdout + proc.stderr).strip()[-800:]}")
+            m = re.fullmatch(_LINT_LINE, proc.stdout.strip().splitlines()[-1])
+            check(m is not None, f"phase 19 linter {label}: summary line {proc.stdout.strip()[-200:]!r}")
+            new, based, stale, analysis_s, hits, misses = m.groups()
+            check((new, based, stale) == ("0", "0", "0"), f"phase 19 linter {label}: {m.group(0)}")
+            runs[label] = {"wall_s": secs, "analysis_s": float(analysis_s), "hits": int(hits), "misses": int(misses)}
+        check(runs["cold"]["hits"] == 0 and runs["cold"]["misses"] == files,
+              f"phase 19 linter cold: {runs['cold']} for {files} files")
+        check(runs["warm"]["hits"] == files and runs["warm"]["misses"] == 0,
+              f"phase 19 linter warm: {runs['warm']}, want {files} hits and no miss")
+        proc, json_s = lint_run(cache, "--format", "json")
+        check(proc.returncode == 0, f"phase 19 linter json: exit {proc.returncode}")
+        doc = json.loads(proc.stdout)
+        check(doc == {"count": 0, "findings": []}, f"phase 19 linter json: {str(doc)[:300]}")
+    metrics["lint"] = {"files": files, "findings": doc["count"], **{f"{k}_{f}": v for k, row in runs.items()
+                                                                  for f, v in row.items()}, "json_wall_s": json_s}
+    print(f"phase 19 linter: {files} files analyzed, {doc['count']} findings against the empty baseline; cold "
+          f"{runs['cold']['wall_s']:.2f} s ({runs['cold']['analysis_s']:.2f} s of analysis, {files} misses), "
+          f"warm {runs['warm']['wall_s']:.2f} s ({runs['warm']['analysis_s']:.2f} s, {files} hits), --format "
+          f"json {json_s:.2f} s [{card}]")
+    metrics.update(capture_ground_truth(torch, dev, card))
+    torch.cuda.synchronize()
+    launches = {f"blockquant_{f.__name__.removesuffix('_blocks')}": f.launches for f in counted}
+    launches.update({f.__name__: f.launches for f in kernels[len(counted):]})
+    return launches, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
@@ -5022,6 +5160,16 @@ def run(dev, out_path=None) -> int:
             row.setdefault("launches_by_phase", {})["18"] = auto_launches[row["name"]]
             row["launches"] += auto_launches[row["name"]]
     print(f"phase 18: {auto_metrics['phase18_s']:.1f} s; launches {auto_launches} [{card}]")
+    # ---------------------------------------------------------------- 19
+    t19 = time.perf_counter()
+    lint_launches, lint_metrics = phase_linter(torch, htt, cq, dev, counted, card)
+    lint_metrics["phase19_s"] = time.perf_counter() - t19
+    check(not any(lint_launches.values()), f"phase 19 launched {lint_launches}: the linter runs no B1-B4")
+    for row in kernel_rows:
+        if row["name"] in lint_launches:
+            row.setdefault("launches_by_phase", {})["19"] = lint_launches[row["name"]]
+            row["launches"] += lint_launches[row["name"]]
+    print(f"phase 19: {lint_metrics['phase19_s']:.1f} s; launches {lint_launches} [{card}]")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -5046,6 +5194,7 @@ def run(dev, out_path=None) -> int:
         **serve_metrics,
         **fleet_metrics,
         **auto_metrics,
+        **lint_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

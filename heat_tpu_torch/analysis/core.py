@@ -11,10 +11,14 @@ rules need:
   enclosing-function queries;
 - per-scope assignment tables (including tuple-unpacking, the
   ``mesh, name = comm.mesh, comm.axis_name`` idiom);
-- the set of TRACED functions: anything passed to ``htt.fuse`` or
-  decorated with ``fuse`` (the port's one tracing entry point: the op
-  engine's ``jitted`` runs its functions eagerly);
-- inline-suppression handling (``# spmdlint: disable=SPMD501`` on the
+- the set of TRACED regions, the code the port captures: functions
+  passed to ``htt.fuse`` or decorated with ``fuse`` (bare or called),
+  and the bodies of ``with torch.cuda.graph(...)`` blocks (the op engine's
+  ``jitted`` runs its functions eagerly, so it traces nothing).  A
+  function passed to or decorated with ``jax.jit`` counts as traced too,
+  so that the rules that do not depend on the framework give the
+  reference's findings on JAX code;
+- inline-suppression handling (``# spmdlint: disable=SPMD101`` on the
   finding's line or its statement's first line, ``# spmdlint: skip-file``
   in the header).
 
@@ -52,11 +56,18 @@ _SUPPRESS_RE = re.compile(
 _SKIP_FILE_RE = re.compile(r"#\s*spmdlint:\s*skip-file")
 
 #: entry points whose function argument (by position) gets traced:
-#: ``htt.fuse`` traces its function into one program (core/fuse.py), so
-#: host syncs inside it are bugs
+#: ``htt.fuse`` traces its function into one program and captures it as a
+#: CUDA graph on the card (core/fuse.py), so host effects and host syncs
+#: inside it are bugs.  The op engine's ``jitted`` (core/_compile.py) is
+#: not here: it calls ``make_fn()`` once and runs the function it returns
+#: eagerly, every call
 _TRACING_CALLS = {
     "fuse": (0,),
+    "jit": (0,),  # jax.jit only
 }
+#: the context manager whose body is captured into a CUDA graph: it runs
+#: once, at capture, and each replay repeats only the kernels it launched
+_CAPTURE_CONTEXT = "torch.cuda.graph"
 
 FuncNode = Union[ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda]
 _FUNC_TYPES = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
@@ -65,13 +76,16 @@ _FUNC_TYPES = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
 def repo_root_for(path: str) -> Optional[str]:
     """Nearest enclosing repo root of ``path``: the first ancestor holding
     a ``.git`` directory, ``pyproject.toml``, or committed spmdlint
-    baseline.  None when ``path`` is outside any recognizable repo."""
+    baseline outside a package (the port keeps its own baseline in
+    ``heat_tpu_torch/``, which is a package, not a root).  None when
+    ``path`` is outside any recognizable repo."""
     d = os.path.dirname(os.path.abspath(path))
     while True:
         if (
             os.path.isdir(os.path.join(d, ".git"))
             or os.path.isfile(os.path.join(d, "pyproject.toml"))
-            or os.path.isfile(os.path.join(d, "spmdlint-baseline.json"))
+            or (os.path.isfile(os.path.join(d, "spmdlint-baseline.json"))
+                and not os.path.isfile(os.path.join(d, "__init__.py")))
         ):
             return d
         parent = os.path.dirname(d)
@@ -137,6 +151,7 @@ class FileContext:
         self.module_names = self._collect_module_names()
         self._scope_assigns: Dict[ast.AST, Dict[str, Tuple]] = {}
         self.traced_fns = self._collect_traced()
+        self.captured_blocks = self._collect_captured()
         self.skip_file = any(
             _SKIP_FILE_RE.search(ln) for ln in self.lines[:5]
         )
@@ -353,7 +368,7 @@ class FileContext:
             if isinstance(node, ast.Call):
                 dotted = self.resolve(node.func) or ""
                 leaf = dotted.rsplit(".", 1)[-1]
-                if leaf in _TRACING_CALLS:
+                if leaf in _TRACING_CALLS and (leaf != "jit" or "jax" in dotted):
                     for idx in _TRACING_CALLS[leaf]:
                         if idx < len(node.args):
                             fn = self._fn_node_of(node.args[idx], node)
@@ -362,14 +377,36 @@ class FileContext:
             elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 for dec in node.decorator_list:
                     target = dec.func if isinstance(dec, ast.Call) else dec
-                    if self.resolves_to(target, "fuse"):
+                    if self.resolves_to(target, "fuse", "jax.jit"):
                         traced.add(node)
         return traced
 
+    def _collect_captured(self) -> set:
+        """``with`` statements one of whose items enters
+        ``torch.cuda.graph(...)``: their bodies are captured regions."""
+        captured: set = set()
+        for node in ast.walk(self.tree):
+            if isinstance(node, (ast.With, ast.AsyncWith)):
+                for item in node.items:
+                    expr = item.context_expr
+                    target = expr.func if isinstance(expr, ast.Call) else expr
+                    if self.resolves_to(target, _CAPTURE_CONTEXT):
+                        captured.add(node)
+                        break
+        return captured
+
     def in_traced_context(self, node: ast.AST) -> bool:
         """True when ``node`` executes at trace time: some enclosing
-        function is (or is nested in) a traced function."""
-        return any(fn in self.traced_fns for fn in self.enclosing_functions(node))
+        function is (or is nested in) a traced function, or ``node`` lies
+        in the body of a ``with torch.cuda.graph(...)`` block."""
+        child, cur = node, self.parents.get(node)
+        while cur is not None:
+            if isinstance(cur, _FUNC_TYPES) and cur in self.traced_fns:
+                return True
+            if cur in self.captured_blocks and any(child is st for st in cur.body):
+                return True
+            child, cur = cur, self.parents.get(cur)
+        return False
 
     # ------------------------------------------------------------------ #
     # findings / suppression                                              #
@@ -451,8 +488,9 @@ def iter_py_files(paths: Sequence[str]) -> Iterable[str]:
 
 
 def _register_all_rules() -> None:
-    # imports for the side effect of registering the program-scope
-    # splitflow rules (SPMD501-505); the file-scope rules are not ported
+    # imports for the side effect of registering every rule: the per-file
+    # checkers and the program-scope splitflow rules (SPMD501-505)
+    from . import checkers  # noqa: F401
     from .splitflow import checkers as _sf_checkers  # noqa: F401
 
 
@@ -465,20 +503,31 @@ def _wanted(r, dynamic: bool, rules: Optional[Sequence[str]]) -> bool:
 def analyze_contexts(
     contexts: Sequence[FileContext],
     dynamic: bool = True,
+    cache=None,
     rules: Optional[Sequence[str]] = None,
 ) -> List[Finding]:
     """Run every registered rule over pre-built contexts: file-scope
     rules per context, then the program-scope (splitflow) rules once over
-    the whole set.  (The reference's per-file findings cache comes with
-    its file-scope rules, ROADMAP A18b.)"""
+    the whole set.  ``cache`` is an optional
+    :class:`heat_tpu_torch.analysis.cache.FindingsCache`; per-file results
+    hit it, program-scope results are interprocedural and always
+    recompute."""
     _register_all_rules()
     findings: List[Finding] = []
     live = [ctx for ctx in contexts if not ctx.skip_file]
     file_rules = [r for r in all_rules() if r.scope == "file"]
     for ctx in live:
+        cached = cache.get(ctx, dynamic, rules) if cache is not None else None
+        if cached is not None:
+            findings.extend(cached)
+            continue
+        per_file: List[Finding] = []
         for r in file_rules:
             if _wanted(r, dynamic, rules):
-                findings.extend(f for f in r.check(ctx) if f is not None)
+                per_file.extend(f for f in r.check(ctx) if f is not None)
+        if cache is not None:
+            cache.put(ctx, dynamic, rules, per_file)
+        findings.extend(per_file)
     program_rules = [
         r for r in all_rules()
         if r.scope == "program" and _wanted(r, dynamic, rules)
@@ -508,6 +557,7 @@ def analyze_paths(
     paths: Sequence[str],
     dynamic: bool = True,
     root: Optional[str] = None,
+    cache=None,
     rules: Optional[Sequence[str]] = None,
 ) -> List[Finding]:
     """Analyze every ``.py`` under ``paths``; ``root`` anchors the
@@ -517,4 +567,4 @@ def analyze_paths(
     contexts = [
         FileContext(f, relpath=norm_relpath(f, root)) for f in iter_py_files(paths)
     ]
-    return analyze_contexts(contexts, dynamic=dynamic, rules=rules)
+    return analyze_contexts(contexts, dynamic=dynamic, cache=cache, rules=rules)

@@ -1,31 +1,30 @@
 """Rule registry and the Finding record.
 
-Port of ``heat_tpu/analysis/rules.py`` (stdlib-only), as it is: the ids
-of the whole catalog, of which the port registers the program-scope
-rules SPMD501-505 (:mod:`heat_tpu_torch.analysis.splitflow.checkers`);
-the file-scope rules are ROADMAP A18b.
+Port of ``heat_tpu/analysis/rules.py`` (stdlib-only).  The registry
+holds the rules the port checks, in the reference's ids: the file-scope
+rules of :mod:`heat_tpu_torch.analysis.checkers` and the program-scope
+rules SPMD501-505 (:mod:`heat_tpu_torch.analysis.splitflow.checkers`).
 
 A rule is a function ``check(ctx) -> Iterable[Finding]`` registered under a
 stable id.  Ids are grouped by family so suppressions and docs stay legible:
 
 =========  ===============================================================
 SPMD001    inline suppression of a reason-required rule needs a reason
-SPMD101    ppermute permutations must be valid (partial) bijections
-SPMD102    collective axis names must match the enclosing shard_map mesh
-SPMD201    trace purity: no host effects inside jit/shard_map/pallas fns
-SPMD202    no host-sync coercions (float()/.item()/np.asarray) on traced values
+SPMD101    ``_permute`` permutations and the ring/zig-zag schedule builders
+           must be valid (partial) bijections
+SPMD201    capture purity: no host effects inside fused / graph-captured fns
+SPMD202    no host syncs (.item()/.cpu()/float()/np.asarray) of captured values
 SPMD203    quantized collectives must not carry integer/exact-dtype payloads
 SPMD204    quantized collectives in guard-disabled regions need suppression
-SPMD205    host timing (time.*, telemetry.span) inside traced functions
+SPMD205    host timing (time.*, telemetry.span) inside captured functions
 SPMD206    monolithic split→split resplit inside a loop body
 SPMD207    silent broad except around dispatch/collective/io sites
-SPMD208    unbucketed dynamic batch shape entering a compiled program in a loop
-SPMD209    serialized ring body: ppermute result consumed in the same round
-SPMD210    request-scoped observability inside traced functions
+SPMD208    unbucketed dynamic batch shape entering a fused program in a loop
+SPMD210    request-scoped observability inside captured functions
 SPMD211    retry loop without a deadline around a compiled/guarded call
-SPMD212    blocking host read inside a loop that dispatches compiled programs
-SPMD301    Pallas BlockSpec tiles must respect the hardware tile grid
-SPMD302    pallas_call grids must be static (no traced values)
+SPMD212    blocking host read inside a loop that dispatches programs
+SPMD213    blocking socket/pipe I/O inside a loop that dispatches programs
+SPMD214    unbounded wait/recv inside a ``while True`` worker loop
 SPMD401    jitted() cache keys: hashable, identity-stable parts only
 SPMD501    implicit resplit: binary operand splits disagree (hidden wire)
 SPMD502    redundant resplit chain: intermediate layout is never used
@@ -33,6 +32,11 @@ SPMD503    split axis statically out of range (guaranteed runtime error)
 SPMD504    layout collective on a value inferred replicated (no-op)
 SPMD505    hand-placed resplit inside an autoshard-wrapped function
 =========  ===============================================================
+
+The reference's SPMD102 (named-axis collectives against ``shard_map``),
+SPMD209 (``fori_loop``/``scan`` ring bodies) and SPMD301/302 (Pallas tiles
+and grids) check constructs the port does not have (ROADMAP, "Not ported
+on purpose" and A3b).
 
 SPMD501–505 are **program-scope** rules (``Rule.scope == "program"``):
 they run once over the whole analyzed tree on the splitflow

@@ -603,7 +603,8 @@ def execute(array: torch.Tensor, p_obj: Plan, comm) -> torch.Tensor:
         )
     if not p_obj.steps:  # identity: the at-rest form, no program
         return _pad_to(array, p_obj.out_shape)
-    fn = jitted(("comm.resplit", comm, p_obj.key), lambda: lambda x: _run_plan(x, p_obj))
+    plan_sig = p_obj.key  # plain data: (shape, dtype, src, dst, size, mode, steps)
+    fn = jitted(("comm.resplit", comm, plan_sig), lambda: lambda x: _run_plan(x, p_obj))
     if _tel.enabled and not in_trace():
         _tel.account_bytes(
             "resplit", p_obj.mode or "f32", p_obj.exact_wire_bytes, p_obj.wire_bytes

@@ -73,7 +73,7 @@ def _run(site: str, operation: Callable, statics: tuple, fn: Callable, *args):
         return fn(*args)
     frozen = _freeze(statics)
     if frozen is not None and cache_stable(operation):
-        return jitted((site, operation, frozen), lambda: fn)(*args)
+        return jitted((site, operation, frozen), lambda: fn)(*args)  # spmdlint: disable=SPMD401 -- site is the caller's namespace string; operation passed cache_stable()
     return counted(fn)(*args)
 
 

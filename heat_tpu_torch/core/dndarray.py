@@ -851,8 +851,9 @@ class DNDarray:
         h = self.__halo_size
         if self.__split is None or not h:
             return self.larray
-        fn = jitted(("dnd.halo_concat", self.__comm), lambda: _halo_concat)
-        return fn(self.__halo_prev, self.__array, self.__halo_next, self.__split, self.__comm.size, h)
+        comm = self.__comm
+        fn = jitted(("dnd.halo_concat", comm), lambda: _halo_concat)
+        return fn(self.__halo_prev, self.__array, self.__halo_next, self.__split, comm.size, h)
 
     @property
     def T(self) -> "DNDarray":

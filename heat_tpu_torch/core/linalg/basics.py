@@ -253,7 +253,8 @@ def norm(a: DNDarray) -> DNDarray:
     layout: the sum runs over the true view, so no pad enters it."""
     sanitize_in(a)
     x = _inexact(a)
-    key = ("linalg.norm", a.comm, a.splits, tuple(x.shape), str(x.dtype))
+    comm, splits = a.comm, a.splits
+    key = ("linalg.norm", comm, splits, tuple(x.shape), str(x.dtype))
     return _scalar(a, jitted(key, lambda: _norm)(x))
 
 

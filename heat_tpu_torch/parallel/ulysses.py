@@ -67,8 +67,8 @@ def ulysses_attention(
         if size == 1 and local_kernel != "xla":
             out = flash_attention(q, k, v, causal=causal)
         else:
-            key = ("ulysses.fallback", causal, B, S, H, D, q.dtype)
-            out = jitted(key, lambda: _dense_attention)(q, k, v, causal)
+            out = jitted(("ulysses.fallback", causal, B, S, H, D, q.dtype), lambda: _dense_attention)(
+                q, k, v, causal)
         return out if batched else out[0]
 
     conforming = conforms(S, D, q.dtype)
@@ -81,7 +81,10 @@ def ulysses_attention(
     use_flash = local_kernel == "flash" or (
         local_kernel == "auto" and q.device.type == "cuda" and conforming
     )
-    key = ("ulysses.flash" if use_flash else "ulysses.xla", comm, causal, B, S, H, D, q.dtype)
+    if use_flash:
+        key = ("ulysses.flash", comm, causal, B, S, H, D, q.dtype)
+    else:
+        key = ("ulysses.xla", comm, causal, B, S, H, D, q.dtype)
     out = jitted(key, lambda: _ulysses)(q, k, v, causal, comm, use_flash)
     return out if batched else out[0]
 

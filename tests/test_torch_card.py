@@ -68,6 +68,10 @@ misses with every bundle installed, the replica holds one CUDA context
 (``nvidia-smi``), its ledger equals the in-process ``FleetEngine``
 twin's, and kill -9 re-queues the whole un-acked set to a warm
 replacement.
+
+The capture rules: ``tests/test_torch_capture_rules.py``'s fixtures on
+the card, each held to what the linter's finding on it means there
+(``chip_smoke.capture_ground_truth``, phase 19's second part).
 """
 
 import importlib
@@ -1467,3 +1471,19 @@ def test_autoshard_bench_pipeline_solved_bitwise_its_hand_twin(cuda_device, tmp_
             assert graphs == 1
     finally:
         htt.fuse.clear_cache()
+
+
+@pytest.mark.gpu
+def test_capture_rules_ground_truth_on_card(cuda_device):
+    """``tests/test_torch_capture_rules.py`` on the card, as
+    ``chip_smoke.py`` phase 19 holds it: the SPMD202 positives' captures
+    refused (in a process of their own), the SPMD201/205 positives frozen
+    at capture, the SPMD210 positive observed at capture only, the
+    negatives one ``cudaGraphLaunch`` a call and bitwise eager."""
+    try:
+        metrics = chip_smoke.capture_ground_truth(torch, cuda_device, chip_smoke.card_line())
+    finally:
+        htt.fuse.clear_cache()
+    mod = chip_smoke.capture_rules_module()
+    assert sorted(metrics["capture_refused"]) == sorted(mod.REFUSED)
+    assert sorted(metrics["capture_clean"]) == sorted(mod.CLEAN)

@@ -46,8 +46,6 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 #: each with the queue item of ROADMAP.md that brings it
 WAITING = {
     "communication": {"init_multihost": "A3b"},
-    # the file-scope linter's baseline file (A18b)
-    "analysis": {"load_baseline": "A18b", "partition": "A18b", "write_baseline": "A18b"},
 }
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
@@ -75,7 +73,8 @@ BASE_MODULES = [
     "comm", "comm._costs", "comm.overlap", "comm.redistribute",
     "net", "net.wire", "serve", "serve.errors", "serve.registry", "serve.batcher", "serve.engine",
     "serve.loadgen", "serve.health", "serve.wfq", "serve.fleet", "serve.procfleet", "serve.ingress",
-    "analysis", "analysis.core", "analysis.rules", "analysis.splitflow", "analysis.splitflow.domain",
+    "analysis", "analysis.core", "analysis.rules", "analysis.checkers", "analysis.baseline",
+    "analysis.cache", "analysis.splitflow", "analysis.splitflow.domain",
     "analysis.splitflow.transfer", "analysis.splitflow.registry", "analysis.splitflow.engine",
     "analysis.splitflow.summary", "analysis.splitflow.report", "analysis.splitflow.checkers",
 ]

@@ -86,6 +86,8 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.analysis.splitflow.transfer", "heat_tpu_torch.analysis.splitflow.registry",
         "heat_tpu_torch.analysis.splitflow.engine", "heat_tpu_torch.analysis.splitflow.summary",
         "heat_tpu_torch.analysis.splitflow.report", "heat_tpu_torch.analysis.splitflow.checkers",
+        "heat_tpu_torch.analysis.checkers", "heat_tpu_torch.analysis.baseline",
+        "heat_tpu_torch.analysis.cache", "heat_tpu_torch.analysis.cli",
     ]
     proc = _run(
         "import importlib, sys\n"
@@ -193,13 +195,66 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_card.py"],
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_card.py",
+                                 ROOT / "tests" / "test_torch_capture_rules.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_heat_tpu_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "heat_tpu"), f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted((PKG / "analysis").rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_the_linter_imports_only_the_stdlib(path):
+    """``heat_tpu_torch/analysis`` imports no torch, no jax, nothing of
+    ``heat_tpu`` and nothing of the port outside itself."""
+    import sys as _sys
+
+    tree = ast.parse(path.read_text(), filename=str(path))
+    depth = len(path.relative_to(PKG / "analysis").parts) - 1
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level <= depth + 1, f"{path}: imports outside analysis/: {ast.unparse(node)}"
+            if node.level:
+                continue
+            tops = [node.module.split(".")[0]]
+        else:
+            continue
+        for top in tops:
+            assert top in _sys.stdlib_module_names or top == "__future__", f"{path} imports {top}"
+
+
+def test_the_linter_runs_on_the_stdlib_alone(tmp_path):
+    """The linter, its cache, its CLI and splitflow's cost report run in
+    an interpreter without site-packages (``-I -S``: no torch, no numpy,
+    no jax), the port's package entered without its ``__init__``."""
+    src = tmp_path / "m.py"
+    src.write_text("import heat_tpu_torch as ht\n\n\ndef f(x, comm):\n"
+                   "    for _ in range(4):\n        x = comm.resplit(x, 1)\n    return ht.ones((8, 4), split=0).resplit(1)\n")
+    code = (
+        "import sys, types\n"
+        f"pkg = types.ModuleType('heat_tpu_torch'); pkg.__path__ = [{str(PKG)!r}]\n"
+        "sys.modules['heat_tpu_torch'] = pkg\n"
+        "from heat_tpu_torch.analysis import analyze_file\n"
+        "from heat_tpu_torch.analysis import cli\n"
+        f"found = analyze_file({str(src)!r}, relpath='m.py')\n"
+        "assert [f.rule for f in found] == ['SPMD206'], found\n"
+        f"assert cli.main([{str(src)!r}, '--cache-dir', {str(tmp_path / 'cache')!r}, '-q']) == 1\n"
+        f"assert cli.main([{str(src)!r}, '--cost-report', '--format', 'json']) == 0\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] not in sys.stdlib_module_names"
+        " and n.split('.')[0] != 'heat_tpu_torch' and n not in ('__main__', '__mp_main__'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-I", "-S", "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_grid_paths_run_without_jax_or_heat_tpu():

@@ -18,7 +18,7 @@ On every source the two must agree:
 
 Then each case's own assertion runs on the port's result, as the
 reference's test states it.  The findings cache, the baseline and SPMD001
-belong to the file-scope linter, which is not ported (ROADMAP A18b).
+belong to the file-scope linter (``tests/test_torch_spmdlint.py``).
 """
 
 import ast
@@ -104,11 +104,15 @@ def program_of(*sources):
 
 
 def lint(source, rule=None):
-    """The port's SPMD5xx findings on ``source``, held equal to the
-    reference's (its file-scope findings are left out: not ported)."""
+    """The port's findings on ``source``, held equal to the reference's
+    of the rules the port has (its SPMD102, 209, 301 and 302 are left
+    out: not ported)."""
+    from heat_tpu_torch.analysis import RULES
+
+    pcore._register_all_rules()
     path = os.path.join(REPO, "tests", "_fixture.py")
     ref = [f for f in rcore.analyze_file(path, source=source, relpath="tests/_fixture.py")
-           if f.rule.startswith("SPMD5")]
+           if f.rule in RULES]
     mine = analyze_file(path, source=port_source(source), relpath="tests/_fixture.py")
     assert [f.to_dict() for f in mine] == [f.to_dict() for f in ref]
     if rule is not None:
@@ -930,11 +934,18 @@ def test_program_rules_never_fire_on_unknown_layouts():
 
 
 def test_only_the_program_rules_are_registered():
+    # the program-scope rules are SPMD501-505; the file-scope linter's
+    # ported rules come before them (tests/test_torch_spmdlint.py)
     from heat_tpu_torch.analysis import all_rules
 
     lint(SOURCES["spmd501"])
-    assert [r.id for r in all_rules()] == ["SPMD501", "SPMD502", "SPMD503", "SPMD504", "SPMD505"]
-    assert all(r.scope == "program" for r in all_rules())
+    assert [r.id for r in all_rules()] == [
+        "SPMD001", "SPMD101", "SPMD201", "SPMD202", "SPMD203", "SPMD204", "SPMD205",
+        "SPMD206", "SPMD207", "SPMD208", "SPMD210", "SPMD211", "SPMD212", "SPMD213",
+        "SPMD214", "SPMD401", "SPMD501", "SPMD502", "SPMD503", "SPMD504", "SPMD505",
+    ]
+    assert [r.id for r in all_rules() if r.scope == "program"] == [
+        "SPMD501", "SPMD502", "SPMD503", "SPMD504", "SPMD505"]
 
 
 # --------------------------------------------------------------------- #
