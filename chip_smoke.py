@@ -365,6 +365,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``cudaGraphLaunch`` a call and give their eager call's bits.  No
    kernel of B1-B4 runs (the counts are set to 0 before the phase and
    must read 0 after it); ``phase19_s``.
+20. the port across processes (``htt.init_multihost``): two child
+   processes of this script (``--multihost RANK PORT CONFIG``) on
+   ``cuda:0``, two positions each, four in all, joined by gloo on
+   127.0.0.1 (every cross-process byte staged through host memory: NCCL
+   refuses two ranks on one card).  Each runs phase 3's blobs split 0:
+   exact and ``int8_block`` mean/std, exact and ``int8_block`` KMeans
+   (k=8, 30 steps, phase 3's centers), phase 4's (4, 2^20)
+   ``allreduce_q`` payload, a ``resplit`` 0 -> 1 of the blobs (each
+   process's columns bitwise the data's), a mixed-split ``matmul`` and a
+   NetCDF-3 save/load of 20 000 rows (process 0 the writer).  Before
+   spawning, this process runs the same calls at four positions in one
+   process.  Gates: every ``int8_block`` result bitwise the one-process
+   run's (the fits and moments under the partials rule: bitwise where the
+   per-position partials are, else within the ring bound); exact results
+   within phase 3's tolerances; labels equal; each child launches B1, the
+   hop, B2 and the fused decode as often as the one-process run (every
+   launch covers the process's own positions; the final decode every
+   chunk), and the children's ``int8_block`` wire ledgers sum to the
+   one-process ledger and, for the ``allreduce_q``, to ``wire_model``;
+   both children exit 0 and leave no CUDA context.  Prints the backend
+   and transport, the cross-process ``allreduce_q`` wall time (median and
+   spread of 21) beside the one-process one, one KMeans step's wall time,
+   the bytes a hop and ``phase20_s``.
 
 Tolerances: float32 within 2e-5 of the plain version and of float64 dense;
 bfloat16/float16 within 5e-2 of float64 dense and within 2 ulps of the
@@ -4903,9 +4926,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write every JSON line to this file")
     ap.add_argument("--replica", metavar="CONFIG",
                     help="serve as a phase 17 fleet replica (spawned by the fleet, not run by hand)")
+    ap.add_argument("--multihost", nargs=3, metavar=("RANK", "PORT", "CONFIG"),
+                    help="run as a phase 20 process (spawned by phase 20, not run by hand)")
     args = ap.parse_args(argv)
     if args.replica is not None:
         return replica(args.replica)
+    if args.multihost is not None:
+        rank, port, config = args.multihost
+        return multihost_child(int(rank), int(port), config)
 
     import torch
 
@@ -4913,6 +4941,264 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     return run(torch.device("cuda", 0), args.out)
+
+
+#: phase 20: positions a child process owns, and the NetCDF-3 rows
+P20_LOCAL = 2
+P20_NC_ROWS = 20_000
+P20_REPS = 21
+
+
+def p20_calls(torch, htt, cq, comm, data, centers, stacked, nc_path: str, reps: int) -> dict:
+    """Phase 20's calls on ``comm`` (four positions in one process, or a
+    child's process-spanning communicator: every process runs them in
+    lockstep).  Returns host values, this process's launches, its
+    ``int8_block`` wire ledger, the first step's per-position partials
+    and timings."""
+    from heat_tpu_torch.core import _xproc
+    from heat_tpu_torch.telemetry import _core as tel
+
+    counted = (cq.quantize_blocks, cq.dequantize_blocks, cq.dequantize_fma_blocks,
+               cq.dequantize_add_quantize_blocks)
+    dev = comm.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    pl, f = comm.local_size, data.shape[1]
+    out = {}
+    X = htt.array(data, split=0, comm=comm)
+    init = htt.array(centers, comm=comm)
+    out["mean"], out["std"] = htt.mean(X, axis=0).numpy(), htt.std(X, axis=0).numpy()
+    km = htt.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(X)
+    out["km_centers"], out["km_labels"] = km.cluster_centers_.numpy(), km.labels_.lloc[:].cpu().numpy()
+
+    blocks = X.lloc[:].reshape(pl, -1, f)
+    c0 = torch.from_numpy(centers).to(dev)
+    sel = (torch.argmin(torch.sum(c0 * c0, dim=1) - 2.0 * torch.matmul(blocks, c0.T), dim=-1)
+           .unsqueeze(-1) == torch.arange(K, device=dev)).to(blocks.dtype)
+    out["partials_km"] = torch.matmul(sel.transpose(1, 2), blocks).cpu().numpy()
+    out["partials_sum"] = torch.sum(blocks, dim=1).cpu().numpy()
+
+    for fn in counted:
+        fn.launches = 0
+    tel.reset()
+    tel.enable()
+    try:
+        with cq.collective_precision("int8_block"):
+            sent0 = dict(_xproc.SENT)
+            red = cq.allreduce_q(stacked, comm=comm)
+            sync()
+            out["hop_bytes"] = _xproc.SENT["bytes"] - sent0["bytes"]
+            out["hop_messages"] = _xproc.SENT["messages"] - sent0["messages"]
+            out["ledger_allreduce"] = tel._counters.get("comm.wire_bytes.int8_block", 0)
+            m8, s8 = htt.mean(X, axis=0), htt.std(X, axis=0)
+            km8 = htt.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(X)
+            sync()
+            out["ledger"] = (tel._counters.get("comm.wire_bytes.int8_block", 0),
+                             tel._counters.get("comm.exact_bytes.int8_block", 0))
+    finally:
+        tel.disable()
+        tel.reset()
+    out["launches"] = {f"blockquant_{fn.__name__.removesuffix('_blocks')}": fn.launches for fn in counted}
+    out["q_allreduce"] = red.cpu().numpy()
+    out["q_mean"], out["q_std"] = m8.numpy(), s8.numpy()
+    out["q_km_centers"] = km8.cluster_centers_.numpy()
+    out["q_km_labels"] = km8.labels_.lloc[:].cpu().numpy()
+
+    a, b = comm.process_rows(f) if comm.spans_processes else (0, f)
+    Y = X.resplit(1)
+    out["resplit_split"] = Y.split
+    out["resplit_ok"] = bool(torch.equal(Y.lloc[:].cpu(), torch.from_numpy(data[:, a:b])))
+    W = np.random.default_rng(20).normal(size=(f, 16)).astype(np.float32)
+    P = X @ htt.array(W, split=1, comm=comm)
+    out["matmul_split"], out["matmul_local"] = P.split, P.lloc[:].cpu().numpy()
+    S = htt.array(data[:P20_NC_ROWS], split=0, comm=comm)
+    htt.save_netcdf(S, nc_path, "x")
+    L = htt.load_netcdf(nc_path, "x", split=0, comm=comm)
+    out["nc_ok"] = bool(torch.equal(L.lloc[:].cpu(), S.lloc[:].cpu()))
+
+    times = []
+    with cq.collective_precision("int8_block"):
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            cq.allreduce_q(stacked, comm=comm)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fits = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            htt.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1.0).fit(X)
+            sync()
+            fits.append((time.perf_counter() - t0) * 1e3 / ITERS)
+    out["allreduce_ms"] = times
+    out["kmeans_step_ms"] = float(np.median(fits))
+    return out
+
+
+def p20_payload(first: int, local: int) -> np.ndarray:
+    """Phase 4's (4, 2^20) allreduce payload, rows ``[first, first + local)``."""
+    return np.random.default_rng(1).normal(size=(POSITIONS, PAYLOAD)).astype(np.float32)[
+        first:first + local]
+
+
+def multihost_child(rank: int, port: int, config: str) -> int:
+    """A phase 20 process: joins the two-process group, runs
+    :func:`p20_calls` on its positions and writes its results to the
+    configuration's ``out`` prefix."""
+    import pickle
+
+    import torch
+
+    import heat_tpu_torch as htt
+    from heat_tpu_torch.comm import compressed as cq
+
+    cfg = json.loads(config)
+    dev = torch.device(cfg["device"])
+    if dev.type == "cpu":
+        htt.use_device("cpu")
+    comm = htt.init_multihost(f"127.0.0.1:{port}", num_processes=2, process_id=rank,
+                              local_device_ids=[cfg["device"]] * cfg["local"])
+    data, centers = make_blobs() if cfg["rows"] == N else small_blobs(cfg["rows"])
+    stacked = torch.from_numpy(p20_payload(comm.local_position(), comm.local_size)[:, :cfg["payload"]]).to(dev)
+    out = p20_calls(torch, htt, cq, comm, data, centers, stacked, cfg["nc"], cfg["reps"])
+    out.update(backend=comm.backend, transport=comm.transport, rank=comm.rank,
+               first=comm.local_position(), rows=comm.process_rows(data.shape[0]),
+               jax_free=not any(m == "jax" or m.startswith(("jax.", "heat_tpu.")) or m == "heat_tpu"
+                                for m in sys.modules))
+    with open(f"{cfg['out']}_{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    return 0
+
+
+def small_blobs(rows: int):
+    """A small stand-in for :func:`make_blobs` (``rows`` a multiple of 8K)
+    to rehearse phase 20 on the CPU."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(scale=10, size=(K, F)).astype(np.float32)
+    return np.concatenate(
+        [c + rng.normal(size=(rows // K, F)).astype(np.float32) for c in centers]), centers
+
+
+def phase_multihost(torch, htt, cq, dev, card: str, rows: int = N, payload: int = PAYLOAD,
+                    reps: int = P20_REPS):
+    """Phase 20 (see the module docstring).  Returns ``(launches,
+    metrics)``: the children's launches summed, and the readings."""
+    import pickle
+    import socket
+    import tempfile
+
+    on_card = dev.type == "cuda"
+    data, centers = make_blobs() if rows == N else small_blobs(rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        comm4 = htt.TorchCommunication([dev] * POSITIONS)
+        stacked = torch.from_numpy(p20_payload(0, POSITIONS)[:, :payload]).to(dev)
+        one = p20_calls(torch, htt, cq, comm4, data, centers, stacked, os.path.join(tmp, "one.nc"), reps)
+        base = compute_apps() if on_card else []
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        cfg = json.dumps({"device": "cuda:0" if on_card else "cpu", "local": P20_LOCAL, "rows": rows,
+                          "payload": payload, "reps": reps, "nc": os.path.join(tmp, "two.nc"),
+                          "out": os.path.join(tmp, "child")})
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost", str(r),
+                                   str(port), cfg], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"phase 20 child {r} exited {p.returncode}:\n{log[-3000:]}")
+        kids = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"child_{r}.pkl"), "rb") as fh:
+                kids.append(pickle.load(fh))
+    if on_card:
+        check_contexts(base, [], "after the two phase 20 processes exited")
+
+    # where a child's per-position partials are not the one-process run's
+    # bits, both results lie within the ring bound of the exact value:
+    # they differ by at most twice it (phase 4's bounds)
+    n = data.shape[0]
+    d64 = data.astype(np.float64)
+    blocks64 = d64.reshape(POSITIONS, n // POSITIONS, -1)
+    ssd = ((blocks64 - d64.mean(0)) ** 2).sum(1)
+    v_bound = POSITIONS * float(np.abs(ssd).max(axis=1).sum()) / 254.0 / n
+    parts = np.abs(one["partials_km"].astype(np.float64)).reshape(POSITIONS, -1).max(1).sum()
+    count = max(int(np.bincount(one["q_km_labels"], minlength=K).min()), 1)
+    bounds = {
+        "q_mean": 2 * POSITIONS * float(np.abs(one["partials_sum"]).max(axis=1).sum()) / 254.0 / n,
+        "q_std": 2 * v_bound / float(d64.std(0).min()),
+        "q_km_centers": 2 * (POSITIONS + 1) * float(parts) / 254.0 / count,
+    }
+    metrics = {}
+    for r, kid in enumerate(kids):
+        check(kid["jax_free"], f"phase 20 child {r} imported jax or heat_tpu")
+        check((kid["backend"], kid["rank"], kid["first"]) == ("gloo", r, r * P20_LOCAL),
+              f"phase 20 child {r}: backend/rank/first {kid['backend']}/{kid['rank']}/{kid['first']}")
+        a, b = kid["rows"]
+        # int8_block: bitwise the one-process run where the partials are
+        check(same_bytes(kid["q_allreduce"], one["q_allreduce"]), f"child {r}: allreduce_q not bitwise")
+        pos = slice(r * P20_LOCAL, (r + 1) * P20_LOCAL)
+        parts_km = same_bytes(kid["partials_km"], one["partials_km"][pos])
+        parts_sum = same_bytes(kid["partials_sum"], one["partials_sum"][pos])
+        metrics[f"phase20_partials_bitwise_{r}"] = [parts_km, parts_sum]
+        for key, parts in (("q_mean", parts_sum), ("q_std", parts_sum), ("q_km_centers", parts_km)):
+            if parts:
+                check(same_bytes(kid[key], one[key]), f"child {r}: {key} not bitwise the one-process run")
+            else:
+                gap = float(np.abs(kid[key].astype(np.float64) - one[key]).max())
+                check(gap <= bounds[key], f"child {r}: {key} {gap} from the one-process run, beyond "
+                                          f"twice the ring bound {bounds[key]}")
+                metrics[f"phase20_{key}_gap_{r}"] = gap
+        check(np.array_equal(kid["q_km_labels"], one["q_km_labels"][a:b]), f"child {r}: int8 labels differ")
+        check(np.array_equal(kid["km_labels"], one["km_labels"][a:b]), f"child {r}: exact labels differ")
+        for key in ("mean", "std", "km_centers"):
+            check(np.allclose(kid[key], one[key], rtol=1e-4, atol=1e-4), f"child {r}: exact {key} differs")
+        check(kid["resplit_split"] == 1 and kid["resplit_ok"], f"child {r}: resplit 0 -> 1")
+        check(kid["matmul_split"] == 0 and np.allclose(kid["matmul_local"], one["matmul_local"][a:b],
+                                                       rtol=1e-4, atol=1e-3), f"child {r}: matmul")
+        check(kid["nc_ok"], f"child {r}: NetCDF-3 round trip")
+        check(kid["launches"] == one["launches"],
+              f"child {r} launches {kid['launches']} != the one-process run's {one['launches']}")
+    wm = cq.wire_model(payload, POSITIONS, "int8_block")["wire_bytes"]
+    led = [kid["ledger_allreduce"] for kid in kids]
+    check(sum(led) == wm == one["ledger_allreduce"],
+          f"allreduce_q ledgers {led} (sum {sum(led)}) != wire_model {wm}")
+    check(tuple(map(sum, zip(*[kid["ledger"] for kid in kids]))) == tuple(one["ledger"]),
+          f"the children's int8 ledgers {[k['ledger'] for k in kids]} do not sum to {one['ledger']}")
+    x_med, x_spread = summary(kids[0]["allreduce_ms"])
+    i_med, i_spread = summary(one["allreduce_ms"])
+    hops = 2 * (POSITIONS - 1)
+    launches = {name: sum(kid["launches"][name] for kid in kids) for name in one["launches"]}
+    metrics.update({
+        "phase20_backend": kids[0]["backend"],
+        "phase20_transport": kids[0]["transport"],
+        "phase20_allreduce_q_xproc_ms": x_med, "phase20_allreduce_q_xproc_spread_pct": x_spread,
+        "phase20_allreduce_q_inproc_ms": i_med, "phase20_allreduce_q_inproc_spread_pct": i_spread,
+        "phase20_kmeans_step_xproc_ms": kids[0]["kmeans_step_ms"],
+        "phase20_kmeans_step_inproc_ms": one["kmeans_step_ms"],
+        "phase20_hop_bytes": kids[0]["hop_bytes"] / max(kids[0]["hop_messages"], 1),
+        "phase20_hop_messages": kids[0]["hop_messages"],
+        "phase20_ring_hops": hops,
+        "phase20_launches_per_child": kids[0]["launches"],
+        "phase20_ledger_allreduce": led,
+    })
+    print(f"phase 20: 2 processes x {P20_LOCAL} positions over {metrics['phase20_transport']}; "
+          f"allreduce_q (4, {payload}) across processes {x_med:.3f} ms (spread {x_spread}) beside "
+          f"{i_med:.3f} ms in one process; KMeans step {kids[0]['kmeans_step_ms']:.3f} ms across, "
+          f"{one['kmeans_step_ms']:.3f} ms in one; {metrics['phase20_hop_bytes']:.0f} B a hop "
+          f"({kids[0]['hop_messages']} messages for an allreduce); launches a child "
+          f"{kids[0]['launches']}; partials bitwise {[metrics[f'phase20_partials_bitwise_{r}'] for r in range(2)]} "
+          f"[{card}]")
+    return launches, metrics
 
 
 def run(dev, out_path=None) -> int:
@@ -5170,6 +5456,14 @@ def run(dev, out_path=None) -> int:
             row.setdefault("launches_by_phase", {})["19"] = lint_launches[row["name"]]
             row["launches"] += lint_launches[row["name"]]
     print(f"phase 19: {lint_metrics['phase19_s']:.1f} s; launches {lint_launches} [{card}]")
+    # ---------------------------------------------------------------- 20
+    t20 = time.perf_counter()
+    mh_launches, mh_metrics = phase_multihost(torch, htt, cq, dev, card)
+    mh_metrics["phase20_s"] = time.perf_counter() - t20
+    for row in kernel_rows:  # B3/B4 stay off this path (ring attention across processes: A3b3)
+        row.setdefault("launches_by_phase", {})["20"] = mh_launches.get(row["name"], 0)
+        row["launches"] += mh_launches.get(row["name"], 0)
+    print(f"phase 20: {mh_metrics['phase20_s']:.1f} s; launches (both processes) {mh_launches} [{card}]")
 
     metrics = {
         "kmeans_iter_per_s": ITERS / fit_ms * 1e3,
@@ -5195,6 +5489,7 @@ def run(dev, out_path=None) -> int:
         **fleet_metrics,
         **auto_metrics,
         **lint_metrics,
+        **mh_metrics,
         "build_s": build_s,
         "run_s": time.perf_counter() - t_run,
         "card": card,

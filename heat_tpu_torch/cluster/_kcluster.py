@@ -14,7 +14,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from ..core import factories, random, types
+from ..core import _xproc, factories, random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.fuse import fuse
@@ -58,6 +58,22 @@ def _kmeanspp(arr: torch.Tensor, first: torch.Tensor, us: torch.Tensor) -> torch
         idx = torch.clamp(torch.searchsorted(cdf, draw.reshape(1)), 0, n - 1)
         centers[i] = arr[idx[0]]
     return centers
+
+
+def _rows(x: DNDarray, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a row-split ``x``, whole in every process: across
+    processes each process fills the rows it holds and every row is taken
+    from its owner's part."""
+    if not x._slabbed:
+        return x.larray[idx]
+    a, b = x.comm.process_rows(x.shape[0])
+    mine = (idx >= a) & (idx < b)
+    part = torch.zeros((int(idx.shape[0]),) + tuple(x.shape[1:]), dtype=x._local.dtype,
+                       device=x._local.device)
+    part[mine] = x._local[idx[mine] - a]
+    parts = torch.stack(_xproc.all_gather(part))
+    owner = torch.stack(_xproc.all_gather(mine.to(torch.int32))).argmax(dim=0)
+    return parts[owner, torch.arange(int(idx.shape[0]), device=idx.device)]
 
 
 class _KCluster(ClusteringMixin, BaseEstimator):
@@ -164,8 +180,10 @@ class _KCluster(ClusteringMixin, BaseEstimator):
             return
         if self.init == "random":
             idx = random.randperm(x.shape[0], device=x.device, comm=x.comm).larray[: self.n_clusters]
-            centers = x.larray[idx]
+            centers = _rows(x, idx)
         elif self.init == "probability_based":
+            if x._slabbed:
+                _xproc.refuse("the k-means++ init")
             first = random.randint(0, x.shape[0], (1,), device=x.device, comm=x.comm).larray[0]
             us = random.rand(self.n_clusters, device=x.device, comm=x.comm).larray
             centers = _kmeanspp(x.larray.to(torch.float32), first, us).to(x.larray.dtype)
@@ -199,7 +217,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         )
         labels_split = x.split if x.split == 0 else None
         self._labels = DNDarray(
-            labels, tuple(labels.shape), types.int64, labels_split, x.device, x.comm
+            labels, (int(x.shape[0]),), types.int64, labels_split, x.device, x.comm, slab=True
         )
 
     @_split_semantics("entry_split0")

@@ -22,6 +22,14 @@ snapshot left off, ``resume="elastic"`` also onto another number of
 positions.  ``mini_batch=`` (or a stream source as input) fits out of
 core: incremental center updates over the chunks of
 :func:`heat_tpu_torch.io.stream.stream_chunks`.
+
+Across processes (:func:`heat_tpu_torch.init_multihost`) a row-split fit
+runs on each process's rows: the exact loop combines the processes'
+per-step sums and counts in process order; the ``int8_block`` loop's
+error-feedback ring crosses the processes (its per-position partials are
+the one-process loop's, so its centers are too, bit for bit).  Its
+snapshots, ``resume``, the k-means++ init and the streamed fits refuse
+there (ROADMAP A3b2).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 
 from ..core._compile import jitted
 from ..core._tracing import require_concrete
-from ..core import types
+from ..core import _xproc, types
 from ..core.dndarray import DNDarray
 from ..core.sanitation import sanitize_in
 from ..telemetry import _core as _tel
@@ -114,9 +122,11 @@ class KMeans(_KCluster):
         self.mini_batch = None if mini_batch is None else int(mini_batch)
 
     @staticmethod
-    def _fit_segment(arr: torch.Tensor, tol: float, stop: int, carry):
+    def _fit_segment(arr: torch.Tensor, tol: float, stop: int, carry, across: bool = False):
         """Exact Lloyd steps on ``carry = (it, centers, shift)`` while
-        ``it < stop`` and ``shift > tol``."""
+        ``it < stop`` and ``shift > tol`` (``across``: ``arr`` is this
+        process's rows, and each step's sums and counts combine over the
+        processes)."""
         it, c, shift = carry
         k = c.shape[0]
         while it < stop and shift > tol:
@@ -124,27 +134,35 @@ class KMeans(_KCluster):
             sel = _one_hot(labels, k, arr.dtype)
             sums = torch.matmul(sel.T, arr)
             counts = torch.sum(sel, dim=0)[:, None]
+            if across:
+                both = torch.stack(_xproc.all_gather(torch.cat([sums, counts], dim=1))).sum(dim=0)
+                sums, counts = both[:, :-1], both[:, -1:]
             nc = torch.where(counts > 0, sums / torch.clamp_min(counts, 1), c)
             shift = float(torch.sum((nc - c) ** 2))
             it, c = it + 1, nc
         return it, c, shift
 
     @staticmethod
-    def _fit_segment_q(blocks: torch.Tensor, tol: float, stop: int, carry, *, mode: str):
+    def _fit_segment_q(blocks: torch.Tensor, tol: float, stop: int, carry, *, mode: str,
+                       size: Optional[int] = None):
         """The error-feedback loop on ``carry = (it, centers, shift,
         error)``: ``blocks`` is the ``(p, n/p, f)`` row blocks of the
-        positions, ``error`` the stacked ``(p, k*f)`` residual."""
+        positions, ``error`` the stacked ``(p, k*f)`` residual (across
+        processes this process's ``p`` of the ring's ``size``)."""
         from ..comm.compressed import ring_allreduce_q_ef
 
         it, c, shift, e = carry
         p = blocks.shape[0]
+        size = p if size is None else int(size)
         k, f = c.shape
         while it < stop and shift > tol:
             labels = _assign(blocks, c)
             sel = _one_hot(labels, k, blocks.dtype)
             sums = torch.matmul(sel.transpose(1, 2), blocks)
             gcounts = torch.sum(sel, dim=(0, 1))[:, None]
-            red, e = ring_allreduce_q_ef(sums.reshape(p, k * f), e, size=p, mode=mode)
+            if p != size:  # whole counts: exact in any order
+                gcounts = torch.stack(_xproc.all_gather(gcounts)).sum(dim=0)
+            red, e = ring_allreduce_q_ef(sums.reshape(p, k * f), e, size=size, mode=mode)
             nc = torch.where(gcounts > 0.5, red.reshape(k, f) / torch.clamp_min(gcounts, 1.0), c)
             shift = float(torch.sum((nc - c) ** 2))
             it, c = it + 1, nc
@@ -172,11 +190,16 @@ class KMeans(_KCluster):
         from ..io import stream as _stream
 
         if isinstance(x, _stream.StreamSource) or self.mini_batch is not None:
+            if (comm if comm is not None else getattr(x, "comm", None) or _default()).spans_processes:
+                _xproc.refuse("the streamed KMeans fit")
             return self._fit_minibatch(x, resume, comm=comm, device=device)
         sanitize_in(x)
         if x.ndim != 2:
             raise ValueError(f"input needs to be 2D, but was {x.ndim}D")
-        arr = x.larray.to(torch.float32)
+        across = x._slabbed
+        if across and (x.split != 0 or resume or self.checkpoint_every):
+            _xproc.refuse("KMeans.fit of a column split, a snapshot or a resume")
+        arr = x._local.to(torch.float32)
         comm = x.comm
         n, f = int(x.shape[0]), int(x.shape[1])
         k = self.n_clusters
@@ -211,29 +234,29 @@ class KMeans(_KCluster):
             self._initialize_cluster_centers(x)
             carry = (0, self._cluster_centers.larray.to(torch.float32), float("inf"))
             if use_q:
-                carry += (torch.zeros((comm.size, k * f), dtype=torch.float32, device=dev),)
+                carry += (torch.zeros((comm.local_size, k * f), dtype=torch.float32, device=dev),)
 
         # the reference compares in float32: tol rounds as it does there
         tol = float(np.float32(self.tol))
         if use_q:
             p = comm.size
-            blocks = arr.reshape(p, n // p, f)
+            blocks = arr.reshape(comm.local_size, n // p, f)
         while True:
             it0 = carry[0]
             stop = ckpt.stop(it0, self.max_iter)
             with _elastic.dispatch_guard("kmeans.seg_q" if use_q else "kmeans.seg", comm):
                 if use_q:
                     seg = jitted(("kmeans.seg_q", comm, mode, n, f, k), lambda: KMeans._fit_segment_q)
-                    carry = seg(blocks, tol, stop, carry, mode=mode)
+                    carry = seg(blocks, tol, stop, carry, mode=mode, size=p)
                 else:
-                    carry = KMeans._fit_segment(arr, tol, stop, carry)
+                    carry = KMeans._fit_segment(arr, tol, stop, carry, across=across)
             it = carry[0]
             if use_q and _tel.enabled and it > it0:
                 from ..comm import compressed as _cq
 
                 # the loop runs its rings on the ring primitive, below
                 # allreduce_q's accounting: one ledger entry a segment
-                _cq._account_wire("allreduce", mode, k * f, comm.size, reps=it - it0)
+                _cq._account_wire("allreduce", mode, k * f, comm.size, reps=it - it0, comm=comm)
             if it >= self.max_iter or it < stop:
                 # out of iterations, or converged before the boundary
                 break
@@ -248,6 +271,8 @@ class KMeans(_KCluster):
                 arr, centers)
         else:
             labels, self._inertia = _labels_inertia(arr, centers)
+        if across:
+            self._inertia = torch.stack(_xproc.all_gather(self._inertia.reshape(1))).sum()
         self._finalize_fit(x, centers, labels, carry[0])
         return self
 
@@ -342,6 +367,12 @@ class KMeans(_KCluster):
             "mini-batch/streaming fits support init='random' or an explicit "
             f"DNDarray of centroids, got {self.init!r}"
         )
+
+
+def _default():
+    from ..core.communication import get_comm
+
+    return get_comm()
 
 
 def _kmeans_mb_step(chunk: torch.Tensor, nvalid: int, it: int, centers: torch.Tensor,

@@ -27,7 +27,17 @@ block per position, a hop is a roll of the encoded payload along that
 axis, and each hop encodes or decodes every position's chunk in ONE
 kernel launch (quantization is row-independent, so this equals p
 separate launches bit for bit).  An ``int8_block`` allreduce at p
-positions launches 1 quantize, p - 1 hops and 1 dequantize.  The serial
+positions launches 1 quantize, p - 1 hops and 1 dequantize.
+
+Across processes (:func:`heat_tpu_torch.init_multihost`) a ring operand
+is the process's stacked ``(pl, ...)`` blocks of a ``size``-position
+ring.  Each hop rolls the process's own positions' leaves and sends its
+last position's int8 payload and float32 scales to the next process in
+one message, while the previous process's arrive; the all-gather stage
+gathers every process's encoded chunks, whose bytes each process
+decodes.  Each process launches the same kernels as one process would,
+over its own positions (the final decode over every chunk), so the
+result is the one-process ring's bit for bit.  The serial
 ring body of the reference is ported; its overlapped two-stream body is
 bitwise equal to it and is not.
 
@@ -60,6 +70,7 @@ import torch.nn.functional as F
 
 from ..core._compile import jitted, register_key_context
 from ..core._tracing import in_trace
+from ..core import _xproc
 from ..core.communication import sanitize_comm
 from ..resilience import faults as _faults
 from ..resilience import guards as _guards
@@ -500,14 +511,47 @@ def _decode_add_encode(payload: Tuple[torch.Tensor, ...], mode: str, addend: tor
     return dequantize_add_quantize_blocks(*payload, addend.reshape(-1))
 
 
-def _hop(payload: Tuple[torch.Tensor, ...], size: int) -> Tuple[torch.Tensor, ...]:
+def _hop(payload: Tuple[torch.Tensor, ...], size: int,
+         local: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """One ring hop of a stacked payload: position i's leaves move to
-    position i + 1 (every leaf's leading rows split evenly by position)."""
-    out = []
-    for leaf in payload:
-        stacked = leaf.reshape((size, -1) + tuple(leaf.shape[1:]))
-        out.append(torch.roll(stacked, shifts=1, dims=0).reshape(leaf.shape))
-    return tuple(out)
+    position i + 1 (every leaf's leading rows split evenly by position).
+    A payload of ``local < size`` positions is a process's part of the
+    ring: its last position's leaves cross to the next process, one
+    message a hop, and the previous process's arrive."""
+    local = size if local is None else int(local)
+    stacks = [leaf.reshape((local, -1) + tuple(leaf.shape[1:])) for leaf in payload]
+    if local == size:
+        return tuple(torch.roll(st, shifts=1, dims=0).reshape(leaf.shape)
+                     for st, leaf in zip(stacks, payload))
+    arrived = _xproc.ring_shift([st[-1] for st in stacks])
+    return tuple(torch.cat([got.unsqueeze(0), st[:-1]]).reshape(leaf.shape)
+                 for got, st, leaf in zip(arrived, stacks, payload))
+
+
+def _span(stacked: torch.Tensor, size: int) -> Tuple[int, int]:
+    """``(first, local)``: the positions of a ``size``-position ring that a
+    stacked operand holds, all of them or this process's run."""
+    local = int(stacked.shape[0])
+    if local == size:
+        return 0, size
+    rank, nprocs = _xproc.world()
+    if local * nprocs != size:
+        raise ValueError(f"a ring operand of {local} blocks is no process's part of {size} positions")
+    return rank * local, local
+
+
+def _stack_all(stacked: torch.Tensor, size: int) -> torch.Tensor:
+    """Every position's block of a ring operand (a process's part joined
+    with the others')."""
+    if int(stacked.shape[0]) == size:
+        return stacked
+    return torch.cat(_xproc.all_gather(stacked))
+
+
+def _gather_leaves(payload: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """Every process's encoded leaves, in position order (the bytes the
+    all-gather stage forwards)."""
+    return tuple(torch.cat(_xproc.all_gather(leaf)) for leaf in payload)
 
 
 def _padded_len(n: int, block: int) -> int:
@@ -533,24 +577,29 @@ def ring_allreduce_q(stacked: torch.Tensor, *, size: int, mode: str, block: int 
     """
     if size == 1:
         return stacked[0]
+    first, local = _span(stacked, size)
     shape, dtype = tuple(stacked.shape[1:]), stacked.dtype
     n = math.prod(shape)
-    flat = stacked.reshape(size, n).to(torch.float32)
+    flat = stacked.reshape(local, n).to(torch.float32)
     chunk = _padded_len(-(-n // size), block)
     total = size * chunk
-    chunks = F.pad(flat, (0, total - n)).reshape(size, size, chunk)
-    pos = torch.arange(size, device=stacked.device)
+    chunks = F.pad(flat, (0, total - n)).reshape(local, size, chunk)
+    row = torch.arange(local, device=stacked.device)
+    pos = row + first if first else row
 
     # stage 1 - reduce-scatter: position i ends holding chunk (i+1) mod
     # size, encoded: the payload of the all-gather
-    payload = _encode(chunks[pos, pos].reshape(-1), mode, block)
+    payload = _encode(chunks[row, pos].reshape(-1), mode, block)
     for s in range(size - 1):
-        add = chunks[pos, (pos - s - 1) % size]
-        payload = _decode_add_encode(_hop(payload, size), mode, add, block)
+        add = chunks[row, (pos - s - 1) % size]
+        payload = _decode_add_encode(_hop(payload, size, local), mode, add, block)
 
     # stage 2 - all-gather: each reduced chunk quantized once, its bytes
     # forwarded verbatim; chunk j is decoded from position j-1's payload
-    out = _decode(_hop(payload, size), mode)
+    payload = _hop(payload, size, local)
+    if local != size:
+        payload = _gather_leaves(payload)
+    out = _decode(payload, mode)
     return out[:n].reshape(shape).to(dtype)
 
 
@@ -565,11 +614,12 @@ def ring_allreduce_q_ef(
     xc = stacked.to(torch.float32) + error.to(torch.float32)
     if size == 1:
         return xc[0].to(stacked.dtype), torch.zeros_like(error)
+    local = int(xc.shape[0])
     n = math.prod(xc.shape[1:])
     padded = _padded_len(n, block)
-    flat = F.pad(xc.reshape(size, n), (0, padded - n)).reshape(-1)
+    flat = F.pad(xc.reshape(local, n), (0, padded - n)).reshape(-1)
     resid = _decode_add(_encode(flat, mode, block), mode, flat, negate=True)
-    resid = resid.reshape(size, padded)[:, :n].reshape(xc.shape)
+    resid = resid.reshape(local, padded)[:, :n].reshape(xc.shape)
     reduced = ring_allreduce_q(xc, size=size, mode=mode, block=block)
     return reduced.to(stacked.dtype), resid.to(error.dtype)
 
@@ -581,11 +631,15 @@ def ring_allgather_q(stacked: torch.Tensor, *, size: int, mode: str, block: int 
     the same everywhere."""
     if size == 1:
         return stacked
+    _, local = _span(stacked, size)
     shape, dtype = tuple(stacked.shape[1:]), stacked.dtype
     n = math.prod(shape)
     padded = _padded_len(n, block)
-    flat = F.pad(stacked.reshape(size, n).to(torch.float32), (0, padded - n))
-    out = _roundtrip(flat.reshape(-1), mode, block).reshape(size, padded)
+    flat = F.pad(stacked.reshape(local, n).to(torch.float32), (0, padded - n))
+    payload = _encode(flat.reshape(-1), mode, block)
+    if local != size:
+        payload = _gather_leaves(payload)
+    out = _decode(payload, mode).reshape(size, padded)
     return out[:, :n].reshape((size,) + shape).to(dtype)
 
 
@@ -623,7 +677,7 @@ def allreduce_q(
         with collective_precision("f32"):
             return comm.allreduce(array, op)
     p = comm.size
-    if int(array.shape[0]) != p:
+    if int(array.shape[0]) != comm.local_size:
         raise ValueError(
             f"allreduce_q expects one block per mesh position: leading axis "
             f"{array.shape[0]} != mesh size {p}"
@@ -640,7 +694,7 @@ def allreduce_q(
     ring = jitted(("commq.allreduce", comm, mode, blk, tuple(array.shape), array.dtype, has_err),
                   lambda: _allreduce_ring)
     if _tel.enabled:
-        _account_wire("allreduce", mode, math.prod(array.shape[1:]), p)
+        _account_wire("allreduce", mode, math.prod(array.shape[1:]), p, comm=comm)
         with _tel.span("commq:allreduce", mode=mode or "f32", mesh=p):
             out = timed_dispatch("allreduce_q", False, lambda: ring(payload, error, p, mode, blk))
     else:
@@ -669,7 +723,7 @@ def _allreduce_ring(x: torch.Tensor, error: Optional[torch.Tensor], p: int, mode
     if error is None:
         return ring_allreduce_q(x, size=p, mode=mode, block=blk)
     if mode is None:  # exact transmission: the residual is zero
-        return (x + error.to(x.dtype)).sum(dim=0), torch.zeros_like(error)
+        return _stack_all(x + error.to(x.dtype), p).sum(dim=0), torch.zeros_like(error)
     return ring_allreduce_q_ef(x, error, size=p, mode=mode, block=blk)
 
 
@@ -685,8 +739,9 @@ def allgather_q(
     Payloads the policy leaves exact, and ragged axes, stay exact."""
     comm = sanitize_comm(comm)
     p = comm.size
-    mode = reduce_mode(array.dtype, _payload_nbytes(array, stacked=False), precision)
-    if mode is None or p == 1 or array.ndim == 0 or int(array.shape[int(axis) % array.ndim]) % p:
+    mode = reduce_mode(array.dtype, _payload_nbytes(array, stacked=False) * comm.nprocs, precision)
+    if (mode is None or p == 1 or array.ndim == 0
+            or int(array.shape[int(axis) % array.ndim]) % comm.local_size):
         # pinned to "f32": an explicit precision="f32" (the guard's degrade
         # path) must not bounce back through the communicator's policy seam
         with collective_precision("f32"):
@@ -697,11 +752,12 @@ def allgather_q(
     ring = jitted(("commq.allgather", comm, mode, blk, axis, tuple(array.shape), array.dtype),
                   lambda: _allgather_ring)
     if _tel.enabled:
-        _account_wire("allgather", mode, array.numel() // p, p)
+        _account_wire("allgather", mode, array.numel() // comm.local_size, p, comm=comm)
         with _tel.span("commq:allgather", mode=mode, mesh=p):
-            out = timed_dispatch("allgather_q", False, lambda: ring(payload, axis, p, mode, blk))
+            out = timed_dispatch("allgather_q", False,
+                                 lambda: ring(payload, axis, p, mode, blk, comm.local_size))
     else:
-        out = ring(payload, axis, p, mode, blk)
+        out = ring(payload, axis, p, mode, blk, comm.local_size)
     if _faults.any_active():
         out = _faults.comm_output("allgather_q", out)
     if _guards.active() and not in_trace() and not _guards.is_healthy(out):
@@ -713,13 +769,15 @@ def allgather_q(
     return out
 
 
-def _allgather_ring(x: torch.Tensor, axis: int, p: int, mode: str, blk: int) -> torch.Tensor:
+def _allgather_ring(x: torch.Tensor, axis: int, p: int, mode: str, blk: int,
+                    local: int) -> torch.Tensor:
     """The ring of :func:`allgather_q`: ``x``'s ``p`` shards along ``axis``
-    each quantized once."""
+    each quantized once (``x`` a process's ``local`` shards across
+    processes, whose result is the whole padded tensor)."""
     moved = x.movedim(axis, 0)
-    blocks = moved.reshape((p, moved.shape[0] // p) + tuple(moved.shape[1:]))
+    blocks = moved.reshape((local, moved.shape[0] // local) + tuple(moved.shape[1:]))
     full = ring_allgather_q(blocks, size=p, mode=mode, block=blk)
-    return full.reshape(moved.shape).movedim(0, axis)
+    return full.reshape((-1,) + tuple(moved.shape[1:])).movedim(0, axis)
 
 
 def wire_model(n_elems: int, size: int, mode: Optional[str], *,
@@ -729,13 +787,18 @@ def wire_model(n_elems: int, size: int, mode: Optional[str], *,
 
 
 def _account_wire(op: str, mode: Optional[str], n_elems: int, size: int,
-                  reps: int = 1) -> None:
+                  reps: int = 1, comm=None) -> None:
     """Credit ``reps`` ring invocations to the telemetry byte ledger from
-    :func:`wire_model` (callers hold the ``_tel.enabled`` predicate)."""
+    :func:`wire_model` (callers hold the ``_tel.enabled`` predicate).  On
+    a process-spanning ``comm`` each process credits its positions' share
+    (process 0 the remainder), so the ledgers sum to the model."""
     wm = wire_model(n_elems, size, mode, op=op)
-    _tel.account_bytes(
-        op, mode or "f32", wm["exact_wire_bytes"] * reps, wm["wire_bytes"] * reps
-    )
+    exact, wire = wm["exact_wire_bytes"] * reps, wm["wire_bytes"] * reps
+    if comm is not None and comm.spans_processes:
+        share = lambda b: b * comm.local_size // size + (  # noqa: E731
+            b - comm.nprocs * (b * comm.local_size // size) if comm.rank == 0 else 0)
+        exact, wire = share(exact), share(wire)
+    _tel.account_bytes(op, mode or "f32", exact, wire)
 
 
 # --------------------------------------------------------------------- #
@@ -813,16 +876,17 @@ def moments_q(
 
 def _moments_q(buffer, comm, split, axes, keepdims, mode, true_n, split_valid, ddof, finalize,
                out_dtype, blk) -> torch.Tensor:
-    p = comm.size
+    p, local, first = comm.size, comm.local_size, comm.local_position()
     other = true_n // max(int(split_valid), 1)
     s1 = _partials(comm, buffer, split, axes, keepdims, lambda b: b)
     s2 = _partials(comm, buffer, split, axes, keepdims, lambda b: b * b)
-    mu = s1.sum(dim=0) / float(true_n)
+    mu = _stack_all(s1, p).sum(dim=0) / float(true_n)
     # each position's count of real elements, made on the device (a host
     # list copied in could not be captured in a CUDA graph)
     c = comm.shard_width(split_valid)
-    rows = torch.clamp(split_valid - c * torch.arange(p, device=buffer.device), 0, c)
-    counts = (rows * other).to(torch.float32).reshape((p,) + (1,) * (s1.ndim - 1))
+    at = torch.arange(first, first + local, device=buffer.device)
+    rows = torch.clamp(split_valid - c * at, 0, c)
+    counts = (rows * other).to(torch.float32).reshape((local,) + (1,) * (s1.ndim - 1))
     ssd_local = s2 - 2.0 * mu * s1 + counts * mu * mu
     ssd = ring_allreduce_q(ssd_local, size=p, mode=mode, block=blk)
     var = torch.clamp_min(ssd, 0.0) / float(true_n - ddof)

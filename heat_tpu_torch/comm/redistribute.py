@@ -556,14 +556,14 @@ def grid_redistribute_or_none(array, dst_splits, comm, allow_pad: bool, src=None
     change stays on the monolithic path.  ``src`` is the splits tuple the
     tensor is laid out at (None: replicated).
 
-    Falls back under policy "monolithic", at one position, inside a
-    trace, for 0-d and empty tensors, ragged sources, no-op changes and
-    ragged destinations the caller does not let pad; "auto" also demands
-    a sharded -> sharded change of at least
-    :func:`get_redistribution_threshold` bytes.
+    Falls back under policy "monolithic", at one position, across
+    processes (as the reference's), inside a trace, for 0-d and empty
+    tensors, ragged sources, no-op changes and ragged destinations the
+    caller does not let pad; "auto" also demands a sharded -> sharded
+    change of at least :func:`get_redistribution_threshold` bytes.
     """
     policy = get_redistribution()
-    if policy == "monolithic" or comm.size == 1:
+    if policy == "monolithic" or comm.size == 1 or comm.spans_processes:
         return None
     if in_trace() or not array.ndim:
         return None
@@ -596,7 +596,13 @@ def grid_redistribute_or_none(array, dst_splits, comm, allow_pad: bool, src=None
 
 def execute(array: torch.Tensor, p_obj: Plan, comm) -> torch.Tensor:
     """Run a :class:`Plan` on the true-shape global tensor ``array`` as
-    one dispatch, crediting the telemetry ledger outside a trace."""
+    one dispatch, crediting the telemetry ledger outside a trace.  No
+    process holds a global tensor across processes: there a plan refuses
+    (the planner is off, as the reference's)."""
+    if comm.spans_processes:
+        from ..core import _xproc
+
+        _xproc.refuse("a redistribution plan")
     if tuple(int(s) for s in array.shape) != p_obj.global_shape:
         raise ValueError(
             f"plan was built for shape {p_obj.global_shape}, got {tuple(array.shape)}"

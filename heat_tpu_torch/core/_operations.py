@@ -16,6 +16,14 @@ positions, rides the block-scaled quantized ring
 (:func:`heat_tpu_torch.comm.compressed.reduce_q`) when the policy asks for
 compression.
 
+Across processes (:func:`~.communication.init_multihost`) each op runs on
+the process's slab of a split operand: an elementwise map and a reduction
+along other axes need nothing else; a reduction over the split axis folds
+the slab, then combines the processes' partials in process order (the
+combine of :data:`XP_COMBINE`: a reduction without one, such as an
+argmin over the split axis, refuses); a cumulative op along the split
+runs the two-level scan with the earlier processes' position totals.
+
 On a grid communicator the layouts follow the reference's: an elementwise
 map keeps the input's splits tuple, every other op lays its result out at
 the ``split`` compat int (the tuple that shards one dimension over mesh
@@ -34,7 +42,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import sanitation, types
+from . import _xproc, sanitation, types
 from ..telemetry import _core as _tel
 from ._compile import cache_stable, counted, jitted
 from ._tracing import record_dispatch
@@ -98,7 +106,42 @@ def _compressed_mode(x: DNDarray, axes: tuple) -> Optional[str]:
     from ..comm import compressed as _cq
 
     out_elems = math.prod(int(s) for d, s in enumerate(x.gshape) if d not in axes)
-    return _cq.reduce_mode(x._buffer.dtype, out_elems * 4)
+    return _cq.reduce_mode(x._slab.dtype, out_elems * 4)
+
+
+#: how the per-process partials of a reduction over the split axis
+#: combine across processes, by reduction (the modules that define a
+#: reduction register it); the partials stack along a new axis 0
+XP_COMBINE = {}
+
+
+def _host_shape(t) -> tuple:
+    if isinstance(t, DNDarray):
+        return tuple(t.gshape)
+    if np.isscalar(t):
+        return ()
+    return tuple(np.asarray(t).shape)
+
+
+def _xp_operand(t, gshape: tuple, split: int, comm, target, dev):
+    """A non-scalar operand's part beside a slab at ``split`` of a result
+    of global shape ``gshape``: a slab's true rows; a whole operand
+    (replicated, or host data) cut to this process's rows where it spans
+    the split axis."""
+    ndim = len(gshape)
+    if isinstance(t, DNDarray):
+        if t._slabbed:
+            if t.split + ndim - t.ndim != split or t.gshape[t.split] != gshape[split]:
+                _xproc.refuse("an elementwise op of differently split operands")
+            return t._local.to(target)
+        arr = t.larray.to(target)
+    else:
+        arr = types._cast(torch.as_tensor(np.asarray(t), device=dev), target)
+    d = split - (ndim - arr.ndim)
+    if d >= 0 and int(arr.shape[d]) != 1:
+        a, b = comm.process_rows(gshape[split])
+        arr = arr.narrow(d, a, b - a)
+    return arr
 
 
 def _out(out: Optional[DNDarray], wrapped: DNDarray) -> DNDarray:
@@ -166,6 +209,8 @@ def __binary_op(
         raise TypeError(f"expected a DNDarray or scalar, got {type(anchor)}")
 
     target = types._weak_result_type(_operand_type(t1), _operand_type(t2)).torch_type()
+    if anchor._slabbed:
+        return _out(out, _xp_binary(operation, t1, t2, anchor, target, fn_kwargs))
     dev = anchor.larray.device
 
     def operand(t, first: bool):
@@ -195,6 +240,30 @@ def __binary_op(
     return _out(out, wrapped)
 
 
+def _xp_binary(operation, t1, t2, anchor: DNDarray, target, fn_kwargs: dict) -> DNDarray:
+    """:func:`__binary_op` across processes: the op on this process's
+    rows of every operand, wrapped as the result's slab."""
+    gshape = tuple(torch.broadcast_shapes(_host_shape(t1), _host_shape(t2)))
+    split = anchor.split + (len(gshape) - anchor.ndim)
+    if gshape[split] != anchor.gshape[anchor.split]:
+        _xproc.refuse("an elementwise op that broadcasts the split axis")
+    dev, comm = anchor.comm.device, anchor.comm
+
+    def operand(t, first: bool):
+        if np.isscalar(t):
+            value = t.item() if isinstance(t, np.generic) else t
+            if isinstance(value, bool) and target != torch.bool:
+                value = int(value)
+            value = types._cast_scalar(value, target)
+            return torch.full((), value, dtype=target, device=dev) if first else value
+        return _xp_operand(t, gshape, split, comm, target, dev)
+
+    result = _run("binary", operation, (fn_kwargs,), lambda x, y: operation(x, y, **fn_kwargs),
+                  operand(t1, True), operand(t2, False))
+    return DNDarray(result, gshape, types.canonical_heat_type(result.dtype), split, anchor.device,
+                    comm, slab=True)
+
+
 def __local_op(
     operation: Callable,
     x,
@@ -211,6 +280,14 @@ def __local_op(
     cast = None
     if not no_cast and types.heat_type_is_exact(x.dtype):
         cast = torch.float64 if x.dtype is types.int64 else torch.float32
+    if x._slabbed:
+        result = _run("local", operation, (cast, kwargs),
+                      lambda a: operation(a.to(cast) if cast else a, **kwargs), x._local)
+        if tuple(result.shape) != tuple(x._local.shape):
+            _xproc.refuse(f"{getattr(operation, '__name__', 'a map')} (it changes the shape)")
+        wrapped = DNDarray(result, x.gshape, types.canonical_heat_type(result.dtype), x.split,
+                           x.device, x.comm, slab=True)
+        return _out(out, wrapped)
     result = _run("local", operation, (cast, kwargs),
                   lambda a: operation(a.to(cast) if cast else a, **kwargs), x.larray)
     wrapped = DNDarray(
@@ -240,6 +317,8 @@ def __reduce_op(
     cast = dtype.torch_type() if dtype is not None else None
     axes = _axes(x.ndim, axis)
     split = _reduced_split(x, axes, keepdims)
+    if x._slabbed:
+        return _out(out, _xp_reduce(reduction, x, axes, keepdims, cast, split))
 
     result = None
     if (split is None and x.split is not None and reduction is _sum and x.comm.size > 1
@@ -268,6 +347,52 @@ def __reduce_op(
     return _out(out, wrapped)
 
 
+def _reduced_gshape(x: DNDarray, axes: tuple, keepdims: bool) -> tuple:
+    return tuple(1 if d in axes else s for d, s in enumerate(x.gshape) if keepdims or d not in axes)
+
+
+def _xp_reduce(reduction, x: DNDarray, axes: tuple, keepdims: bool, cast, split) -> DNDarray:
+    """:func:`__reduce_op` across processes.  Along other axes the slab
+    reduces alone.  Over the split axis a sum the collective precision
+    compresses rides the quantized ring across the processes; any other
+    reduction folds each process's true rows and combines the partials
+    of the processes that hold rows, in process order."""
+    comm = x.comm
+
+    def f(a, keep):
+        r = reduction(a, axes, keep)
+        return r.to(cast) if cast is not None else r
+
+    if split is not None:
+        result = _run("reduce", reduction, (axes, keepdims, cast), lambda a: f(a, keepdims), x._local)
+        return DNDarray(result, _reduced_gshape(x, axes, keepdims),
+                        types.canonical_heat_type(result.dtype), split, x.device, comm, slab=True)
+    gshape = _reduced_gshape(x, axes, keepdims)
+    if reduction is _sum:
+        mode = _compressed_mode(x, axes)
+        if mode is not None:
+            from ..comm import compressed as _cq
+
+            result = _cq.reduce_q(x._slab, comm=comm, split=x.split, axes=axes, keepdims=keepdims,
+                                  mode=mode, out_dtype=cast or x._slab.dtype)
+            return DNDarray(result, gshape, types.canonical_heat_type(result.dtype), None,
+                            x.device, comm)
+    combine = XP_COMBINE.get(reduction)
+    if combine is None:
+        _xproc.refuse(f"{getattr(reduction, '__name__', 'this reduction')} over the split axis")
+    n = x.gshape[x.split]
+    held = [k for k in range(comm.nprocs) if comm.process_rows(n, k)[1] > comm.process_rows(n, k)[0]]
+    local = x._local
+    if comm.rank not in held:  # a stand-in of the partial's shape and type
+        local = torch.zeros_like(x._slab.narrow(x.split, 0, 1))
+    part = _run("reduce", reduction, (axes, True, cast), lambda a: f(a, True), local)
+    parts = torch.stack(_xproc.all_gather(part))[held]
+    result = combine(parts)
+    if not keepdims:
+        result = result.reshape(gshape)
+    return DNDarray(result, gshape, types.canonical_heat_type(result.dtype), None, x.device, comm)
+
+
 def _sum(a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
     """Sum over ``axes``; integer sums accumulate in int64, as torch's."""
     if not axes:
@@ -283,6 +408,10 @@ def _prod(a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
     for ax in sorted(axes, reverse=True):
         a = torch.prod(a, dim=ax, keepdim=keepdims)
     return a
+
+
+XP_COMBINE[_sum] = lambda t: torch.sum(t, dim=0)
+XP_COMBINE[_prod] = lambda t: torch.prod(t, dim=0)
 
 
 def __cum_op(
@@ -318,6 +447,22 @@ def __cum_op(
             r = r.to(arr.dtype)
         return r.to(cast) if cast is not None else r
 
+    if x._slabbed:
+        from ..parallel.primitives import xp_prefix_scan
+
+        def g(slab):
+            if axis == x.split:
+                r = xp_prefix_scan(slab, scan_op, x.comm, axis, x.gshape[axis])
+            else:
+                r = local_scan(x._true_view(slab), scan_op, axis)
+            if slab.dtype != torch.bool:
+                r = r.to(slab.dtype)
+            return r.to(cast) if cast is not None else r
+
+        result = _run("cum", operation, (axis, cast, x.comm), g, x._slab)
+        wrapped = DNDarray(result, x.gshape, types.canonical_heat_type(result.dtype), x.split,
+                           x.device, x.comm, slab=True)
+        return _out(out, wrapped)
     result = _run("cum", operation, (axis, cast, comm), f, x.larray)
     wrapped = DNDarray(
         result, x.gshape, types.canonical_heat_type(result.dtype), x.split, x.device, x.comm,

@@ -195,7 +195,11 @@ class _AutoshardFunction:
     # runtime side                                                        #
     # ------------------------------------------------------------------ #
     def __call__(self, *args, **kwargs):
+        from . import _xproc
         from .communication import sanitize_comm
+
+        _xproc.refuse_across("htt.autoshard", None, *[a for a in (*args, *kwargs.values())
+                                                      if isinstance(a, DNDarray)])
 
         # the communicator: the first DNDarray's, else the first one passed
         leaves: list = []

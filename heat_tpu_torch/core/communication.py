@@ -12,8 +12,21 @@ rig.  This matters because the quantized ring is an identity at one
 position: a one-card machine exercises it only with several positions on
 that card.  While every position shares one device, a collective is a
 tensor operation along the stacked ``(p, ...)`` position axis and a ring
-hop is a roll along it.  Positions on different devices are not supported
-yet and raise :class:`NotImplementedError`.
+hop is a roll along it.  Positions on different devices of one process
+are not supported yet and raise :class:`NotImplementedError`.
+
+:func:`init_multihost` starts several controller processes and installs a
+**process-spanning** communicator: its positions belong to processes,
+process ``k`` owning the contiguous run ``[k * pl, (k + 1) * pl)`` on its
+one device (``pl`` positions each, equal everywhere).  A split DNDarray
+then holds only its process's *slab* of the at-rest buffer, and a
+collective is the tensor op on the process's stacked ``(pl, ...)`` axis
+plus a ``torch.distributed`` call between processes
+(:mod:`._xproc`: gloo, staged through host memory).  The tensor forms of
+the collectives take the process's part there: the stacked ``(pl, ...)``
+blocks of its positions, or its slab of a split tensor.  The planner stays
+off across processes, as the reference's does; grids over processes are
+refused (ROADMAP A3b2).
 
 A communicator also has a ``mesh_shape``, ``(size,)`` by default.
 :func:`grid_comm` arranges the positions on an ``r x c`` grid, over which a
@@ -29,6 +42,7 @@ positions as one flat ring of ``size``.
 
 from __future__ import annotations
 
+import atexit
 import math
 import os
 import sys
@@ -38,7 +52,7 @@ import numpy as np
 import torch
 
 from ..telemetry import _core as _tel
-from . import devices
+from . import _xproc, devices
 from ._tracing import in_trace, record_dispatch
 
 __all__ = [
@@ -50,6 +64,7 @@ __all__ = [
     "sanitize_comm",
     "comm_for_device",
     "grid_comm",
+    "init_multihost",
 ]
 
 
@@ -95,12 +110,17 @@ class TorchCommunication(Communication):
     visible CUDA device, or one CPU position when the default device is
     the CPU.  ``mesh_shape`` arranges the positions on a grid (row-major:
     position ``i * c + j`` is grid position ``(i, j)``); its product must
-    be the number of positions.  Defaults to ``(size,)``, one axis."""
+    be the number of positions.  Defaults to ``(size,)``, one axis.
+
+    ``process`` (set by :func:`init_multihost`) is ``(rank, nprocs)``: the
+    positions then span ``nprocs`` processes, ``size // nprocs`` each in
+    process order, and ``positions`` lists every process's devices."""
 
     def __init__(
         self,
         positions: Optional[Sequence[Union[str, torch.device]]] = None,
         mesh_shape: Optional[Sequence[int]] = None,
+        process: Optional[Tuple[int, int]] = None,
     ):
         if positions is None:
             dev = devices.get_device()
@@ -111,10 +131,22 @@ class TorchCommunication(Communication):
         self._positions: List[torch.device] = [_torch_device(p) for p in positions]
         if not self._positions:
             raise ValueError("a communicator needs at least one position")
-        if len(set(self._positions)) > 1:
+        self._process: Optional[Tuple[int, int]] = None
+        if process is not None and int(process[1]) > 1:
+            rank, nprocs = int(process[0]), int(process[1])
+            if len(self._positions) % nprocs or not 0 <= rank < nprocs:
+                raise ValueError(
+                    f"{len(self._positions)} position(s) do not divide over {nprocs} processes "
+                    f"(process {rank})"
+                )
+            if mesh_shape is not None and len(tuple(mesh_shape)) > 1:
+                _xproc.refuse("a position grid")
+            self._process = (rank, nprocs)
+        local = self._positions[self.local_position():self.local_position() + self.local_size]
+        if len(set(local)) > 1:
             raise NotImplementedError(
-                f"positions on several devices ({sorted(set(map(str, self._positions)))}) "
-                "are not supported yet: every position must share one device"
+                f"positions on several devices ({sorted(set(map(str, local)))}) "
+                "are not supported yet: every position of a process must share one device"
             )
         if mesh_shape is None:
             mesh_shape = (len(self._positions),)
@@ -134,13 +166,62 @@ class TorchCommunication(Communication):
     # ------------------------------------------------------------------ #
     @property
     def device(self) -> torch.device:
-        """The torch device every position lives on."""
-        return self._positions[0]
+        """The torch device every position of this process lives on."""
+        return self._positions[self.local_position()]
 
     @property
     def size(self) -> int:
         """Number of positions (the reference's mesh size)."""
         return len(self._positions)
+
+    @property
+    def rank(self) -> int:
+        """Index of the controlling process: 0 without a cluster, this
+        process's index in the :func:`init_multihost` group otherwise (the
+        reference's ``comm.rank``, its JAX process index)."""
+        return self._process[0] if self._process else _xproc.group_rank()
+
+    def is_distributed(self) -> bool:
+        """True when the communicator has more than one position."""
+        return self.size > 1
+
+    @property
+    def _index(self) -> int:
+        """This process's index among the processes the positions span."""
+        return self._process[0] if self._process else 0
+
+    def local_position(self) -> int:
+        """The first position the calling process owns: 0 in one process,
+        ``rank * local_size`` on a process-spanning communicator (the
+        reference's, which :attr:`DNDarray.lshape` reads)."""
+        return self._index * self.local_size
+
+    @property
+    def nprocs(self) -> int:
+        """Number of processes the positions span (1 without a cluster)."""
+        return self._process[1] if self._process else 1
+
+    @property
+    def local_size(self) -> int:
+        """Number of positions this process owns (all of them in one
+        process)."""
+        return len(self._positions) // self.nprocs
+
+    @property
+    def spans_processes(self) -> bool:
+        """True when the positions belong to several processes."""
+        return self._process is not None
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The ``torch.distributed`` backend between the processes (None
+        in one process)."""
+        return _xproc.BACKEND if self._process else None
+
+    @property
+    def transport(self) -> Optional[str]:
+        """How bytes cross between processes (None in one process)."""
+        return _xproc.TRANSPORT if self._process else None
 
     @property
     def mesh_shape(self) -> Tuple[int, ...]:
@@ -160,17 +241,20 @@ class TorchCommunication(Communication):
 
     def __repr__(self) -> str:
         grid = "" if self.mesh_ndim == 1 else f", mesh={'x'.join(map(str, self._mesh_shape))}"
-        return f"TorchCommunication({self.size} position(s) on {self.device}{grid})"
+        procs = "" if not self._process else (
+            f", process {self._process[0]} of {self._process[1]} over {self.backend}")
+        return f"TorchCommunication({self.size} position(s) on {self.device}{grid}{procs})"
 
     def __eq__(self, other) -> bool:
         return (
             isinstance(other, TorchCommunication)
             and self._positions == other._positions
             and self._mesh_shape == other._mesh_shape
+            and self._process == other._process
         )
 
     def __hash__(self) -> int:
-        return hash((tuple(str(p) for p in self._positions), self._mesh_shape))
+        return hash((tuple(str(p) for p in self._positions), self._mesh_shape, self._process))
 
     # ------------------------------------------------------------------ #
     # splits tuples                                                       #
@@ -328,7 +412,7 @@ class TorchCommunication(Communication):
         if isinstance(split, (tuple, list)):
             return self._grid_blocks(buffer, self.normalize_splits(buffer.ndim, split))
         shape = tuple(buffer.shape)
-        p = self.size
+        p = self.local_size  # a process's slab holds its own positions' blocks
         c = shape[split] // p
         view = buffer.reshape(shape[:split] + (p, c) + shape[split + 1:])
         return view.movedim(split, 0)
@@ -362,27 +446,37 @@ class TorchCommunication(Communication):
         if op not in ("sum", "prod", "max", "min"):
             raise ValueError(f"unsupported allreduce op {op!r}")
         n = self.size
-        if int(array.shape[0]) != n:
+        if int(array.shape[0]) != self.local_size:
             raise ValueError(
                 f"allreduce expects one block per mesh position: leading axis "
                 f"{array.shape[0]} != mesh size {n}"
+                + (f" ({self.local_size} in this process)" if self.spans_processes else "")
             )
         if n == 1:
             return array[0]
         if op == "sum":
             from ..comm import compressed as _cq
 
-            mode = _cq.reduce_mode(array.dtype, _nbytes(array) // n)
+            mode = _cq.reduce_mode(array.dtype, _nbytes(array) // self.local_size)
             if mode is not None:
                 return _cq.allreduce_q(array, op=op, comm=self, precision=mode)
         if _tel.enabled:
             from ..comm.compressed import _account_wire
 
             elems = math.prod(array.shape[1:]) if array.ndim > 1 else 1
-            _account_wire("allreduce", None, elems, n)
+            _account_wire("allreduce", None, elems, n, comm=self)
             with _tel.span("comm:allreduce", op=op, mesh=n):
-                return self._combine(array, op)
-        return self._combine(array, op)
+                return self._combine(self._stack_all(array), op)
+        return self._combine(self._stack_all(array), op)
+
+    def _stack_all(self, array: torch.Tensor) -> torch.Tensor:
+        """Every position's block: this process's stacked ``(pl, ...)``
+        blocks joined with every other process's, in position order, so a
+        combine over them runs exactly as in one process (the identity in
+        one process)."""
+        if not self.spans_processes:
+            return array
+        return torch.cat(_xproc.all_gather(array), dim=0)
 
     @staticmethod
     def _combine(array: torch.Tensor, op: str) -> torch.Tensor:
@@ -403,9 +497,15 @@ class TorchCommunication(Communication):
         if self.size > 1 and axis is not None and array.ndim:
             from ..comm import compressed as _cq
 
-            mode = _cq.reduce_mode(array.dtype, _nbytes(array))
-            if mode is not None and int(array.shape[axis]) % self.size == 0:
+            mode = _cq.reduce_mode(array.dtype, _nbytes(array) * self.nprocs)
+            if mode is not None and int(array.shape[axis]) % self.local_size == 0:
                 return _cq.allgather_q(array, axis=axis, comm=self, precision=mode)
+            if self.spans_processes:
+                # this process's slab along ``axis`` in, the padded global out
+                if _tel.enabled:
+                    _cq._account_wire("allgather", None, array.numel() // self.local_size,
+                                      self.size, comm=self)
+                return torch.cat(_xproc.all_gather(array), dim=int(axis) % array.ndim)
             # ledger + span only when traffic would move: a replicated
             # input (axis None) makes the exact gather a no-op
             if _tel.enabled:
@@ -424,7 +524,7 @@ class TorchCommunication(Communication):
         with _tel.span("comm:reshard"):
             return relayout()
 
-    def resplit(self, array: torch.Tensor, split, src=None) -> torch.Tensor:
+    def resplit(self, array: torch.Tensor, split, src=None, gshape=None) -> torch.Tensor:
         """The at-rest form of a TRUE-shape global tensor laid out at
         ``split``: the split axis zero-padded to its canonical length.  A
         splits tuple, or any layout on a grid, pads every sharded
@@ -441,13 +541,20 @@ class TorchCommunication(Communication):
         The monolithic commit, outside a trace and on several positions,
         counts one dispatch (the reference's reshard,
         ``communication.py:1105``); inside an ``htt.fuse`` trace it counts
-        nothing and inspects nothing on the host."""
-        return self._relayout(array, split, src, allow_pad=False)
+        nothing and inspects nothing on the host.
 
-    def _relayout(self, array: torch.Tensor, split, src, allow_pad: bool) -> torch.Tensor:
+        Across processes ``array`` is this process's slab at ``src`` (the
+        whole tensor when ``src`` is None), ``gshape`` the global shape,
+        and the result this process's slab at ``split`` (the whole true
+        tensor for None): the exact all-to-all of :meth:`_xp_relayout`."""
+        return self._relayout(array, split, src, allow_pad=False, gshape=gshape)
+
+    def _relayout(self, array: torch.Tensor, split, src, allow_pad: bool, gshape=None) -> torch.Tensor:
         """The layout change behind :meth:`resplit` and :meth:`commit_split`:
         the planned result where the policy plans it, else the monolithic
         padded copy."""
+        if self.spans_processes:
+            return self._xp_relayout(array, split, src, gshape)
         if self.mesh_ndim > 1 and array.ndim:
             from ..comm import redistribute as _rd
 
@@ -469,6 +576,74 @@ class TorchCommunication(Communication):
             if _tel.enabled:
                 return self._reshard(lambda: self._pad_to(array, split))
         return self._pad_to(array, split)
+
+    def _xp_relayout(self, array: torch.Tensor, split, src, gshape) -> torch.Tensor:
+        """A layout change across processes, exact (the planner stays off
+        across processes, as the reference's ``communication.py:748``):
+        replicated -> split cuts this process's slab; split -> replicated
+        gathers every slab; split -> split is one all-to-all, process ``k``
+        sending process ``j`` its true rows cut to ``j``'s range of the new
+        axis."""
+        if isinstance(split, (tuple, list)) or isinstance(src, (tuple, list)):
+            _xproc.refuse("a splits-tuple layout")
+        if array.ndim == 0 or split == src:
+            return array
+        if src is None:
+            return self.slab_of(array, int(split) % array.ndim)
+        if gshape is None:
+            raise ValueError("a layout change across processes needs the global shape (gshape=)")
+        gshape = tuple(int(v) for v in gshape)
+        src = int(src) % array.ndim
+        if in_trace():
+            _xproc.refuse("a layout change inside a trace")
+        record_dispatch()
+        if split is None:
+            # exact, whatever the collective precision: the planner is off
+            whole = torch.cat(_xproc.all_gather(array), dim=src)
+            return self.unpad(whole, gshape[src], src)
+        dst = int(split) % array.ndim
+        rank, nprocs = self._index, self.nprocs
+        ranges_s = [self.process_rows(gshape[src], k) for k in range(nprocs)]
+        ranges_d = [self.process_rows(gshape[dst], k) for k in range(nprocs)]
+        a, b = ranges_s[rank]
+        local = array.narrow(src, 0, b - a)
+        sends, recvs = {}, {}
+        for j in range(nprocs):
+            a_d, b_d = ranges_d[j]
+            sends[j] = local.narrow(dst, a_d, b_d - a_d).contiguous()
+            shape = list(gshape)
+            shape[src] = ranges_s[j][1] - ranges_s[j][0]
+            shape[dst] = ranges_d[rank][1] - ranges_d[rank][0]
+            recvs[j] = (shape, array.dtype)
+        got = _xproc.exchange(sends, recvs, array.device)
+        out = torch.cat([got[j] for j in range(nprocs)], dim=src)
+        return self.pad_slab(out, gshape[dst], dst)
+
+    def process_rows(self, n: int, rank: Optional[int] = None) -> Tuple[int, int]:
+        """``[start, stop)`` of the true rows of an axis of length ``n`` that
+        process ``rank`` (this one by default) owns: its positions' shards,
+        clipped to ``n``."""
+        rank = self._index if rank is None else int(rank)
+        span = self.local_size * self.shard_width(n)
+        return min(rank * span, int(n)), min((rank + 1) * span, int(n))
+
+    def slab_of(self, array: torch.Tensor, axis: int) -> torch.Tensor:
+        """This process's slab of a whole tensor along ``axis`` (true or
+        padded length): its positions' rows of the padded form, a copy."""
+        padded = self.pad_to_shards(array, axis=axis)
+        span = self.local_size * self.shard_width(int(array.shape[axis]))
+        return padded.narrow(axis, self._index * span, span).clone()
+
+    def pad_slab(self, local: torch.Tensor, n: int, axis: int) -> torch.Tensor:
+        """This process's true rows of an axis of length ``n`` zero-padded
+        to its slab's length."""
+        span = self.local_size * self.shard_width(n)
+        have = int(local.shape[axis])
+        if have == span:
+            return local
+        pads = [0] * (2 * local.ndim)
+        pads[2 * (local.ndim - 1 - axis) + 1] = span - have
+        return torch.constant_pad_nd(local, pads)
 
     def _planned_resplit(self, array: torch.Tensor, split, src, allow_pad: bool) -> Optional[torch.Tensor]:
         """The redistribution-policy seam on one mesh axis: the planned
@@ -512,7 +687,7 @@ class TorchCommunication(Communication):
             return self.pad_to_shards(array, splits=self.normalize_splits(array.ndim, split))
         return self.pad_to_shards(array, axis=int(split) % array.ndim)
 
-    def alltoall(self, array: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+    def alltoall(self, array: torch.Tensor, split_axis: int, concat_axis: int, gshape=None) -> torch.Tensor:
         """Move the split from ``concat_axis`` to ``split_axis``: every
         position sends piece ``j`` of its shard (cut along ``split_axis``)
         to position ``j``, which concatenates what it receives along
@@ -524,7 +699,8 @@ class TorchCommunication(Communication):
         compresses them."""
         if self.size == 1 or array.ndim == 0:
             return array
-        return self.resplit(array, int(split_axis) % array.ndim, src=int(concat_axis) % array.ndim)
+        return self.resplit(array, int(split_axis) % array.ndim, src=int(concat_axis) % array.ndim,
+                            gshape=gshape)
 
     def ring_permute(self, array: torch.Tensor, shift: int = 1) -> torch.Tensor:
         """Rotate the axis-0 shards around the ring: position ``i``'s shard
@@ -533,17 +709,45 @@ class TorchCommunication(Communication):
         n = self.size
         if n == 1:
             return array
+        if self.spans_processes:
+            return self._xp_move(array, [(i, (i + int(shift)) % n) for i in range(n)])
         array = self.pad_to_shards(array, axis=0)
         blocks = array.reshape((n, -1) + tuple(array.shape[1:]))
         return torch.roll(blocks, shifts=int(shift), dims=0).reshape(array.shape)
 
-    def commit_split(self, array: torch.Tensor, split, src=None) -> torch.Tensor:
+    def _xp_move(self, array: torch.Tensor, perm) -> torch.Tensor:
+        """Across processes: position ``dst`` receives position ``src``'s
+        axis-0 block for every pair of ``perm``, the others zeros;
+        ``array`` is this process's slab (its ``local_size`` blocks), and
+        each process sends one message to each process it feeds."""
+        pl, first, rank = self.local_size, self.local_position(), self._index
+        if int(array.shape[0]) % pl:
+            raise ValueError(f"a slab of {array.shape[0]} rows does not hold {pl} equal blocks")
+        blocks = array.reshape((pl, -1) + tuple(array.shape[1:]))
+        out = torch.zeros_like(blocks)
+        sends: Dict[int, list] = {}
+        lands: Dict[int, list] = {}
+        for s, d in perm:
+            if s // pl == rank:
+                sends.setdefault(d // pl, []).append(blocks[s - first])
+            if d // pl == rank:
+                lands.setdefault(s // pl, []).append(d - first)
+        got = _xproc.exchange(
+            {j: torch.stack(v) for j, v in sends.items()},
+            {j: ((len(v),) + tuple(blocks.shape[1:]), blocks.dtype) for j, v in lands.items()},
+            array.device,
+        )
+        for j, rows in lands.items():
+            out[torch.tensor(rows, dtype=torch.int64, device=array.device)] = got[j]
+        return out.reshape(array.shape)
+
+    def commit_split(self, array: torch.Tensor, split, src=None, gshape=None) -> torch.Tensor:
         """The at-rest form of a TRUE-shape global tensor laid out at
         ``split``, as :meth:`resplit` (``src`` the layout it is at), except
         that a plan may pad a ragged destination axis (the reference's
         ``resplit`` keeps the true shape there; both give the padded form
         here)."""
-        return self._relayout(array, split, src, allow_pad=True)
+        return self._relayout(array, split, src, allow_pad=True, gshape=gshape)
 
     def permute(self, array: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """Point-to-point exchange of axis-0 shards: for every ``(src,
@@ -557,7 +761,8 @@ class TorchCommunication(Communication):
         n = self.size
         if n == 1:
             return array
-        array = self.pad_to_shards(array, axis=0)
+        if not self.spans_processes:
+            array = self.pad_to_shards(array, axis=0)
         perm = tuple((int(s), int(d)) for s, d in perm)
         srcs = [s for s, _ in perm]
         dsts = [d for _, d in perm]
@@ -569,6 +774,8 @@ class TorchCommunication(Communication):
                 f"permute: perm {perm} is not a partial bijection "
                 "(duplicate source or destination)"
             )
+        if self.spans_processes:
+            return self._xp_move(array, perm)
         blocks = array.reshape((n, -1) + tuple(array.shape[1:]))
         out = torch.zeros_like(blocks)
         if perm:
@@ -576,7 +783,8 @@ class TorchCommunication(Communication):
             out.index_copy_(0, idx(dsts), blocks.index_select(0, idx(srcs)))
         return out.reshape(array.shape)
 
-    def bcast(self, array: torch.Tensor, root: int = 0, split: Optional[int] = None) -> torch.Tensor:
+    def bcast(self, array: torch.Tensor, root: int = 0, split: Optional[int] = None,
+              n: Optional[int] = None) -> torch.Tensor:
         """Position ``root``'s shard of a global tensor split at ``split``,
         replicated: the root's block along ``split`` (its ``lshape``).  A
         tensor carries no layout, so the split is an argument here where
@@ -584,14 +792,32 @@ class TorchCommunication(Communication):
         replicated input) returns the input."""
         if self.size == 1 or split is None or array.ndim == 0:
             return array
+        if self.spans_processes:
+            # this process's slab in; the root's padded block (its true
+            # rows when ``n`` names the axis length) out, from its process
+            split = int(split) % array.ndim
+            pl = self.local_size
+            c = int(array.shape[split]) // pl
+            owner = int(root) // pl
+            block = None
+            if owner == self.rank:
+                block = array.narrow(split, (int(root) - self.local_position()) * c, c)
+            shape = list(array.shape)
+            shape[split] = c
+            out = _xproc.broadcast(block, owner, shape, array.dtype, array.device)
+            if n is not None:
+                out = out.narrow(split, 0, self.valid_counts(n)[int(root)])
+            return out
         _, _, slices = self.chunk(tuple(array.shape), split, rank=root)
         return array[slices].clone()
 
     def scatter(self, array: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """Lay a replicated global tensor out so each position owns one
         block along ``axis``.  The global tensor already holds every
-        block, so its values come back unchanged."""
-        del axis
+        block, so its values come back unchanged; across processes each
+        process keeps its slab."""
+        if self.spans_processes and array.ndim:
+            return self.slab_of(array, int(axis) % array.ndim)
         return array
 
     def gather(self, array: torch.Tensor, root: int = 0, axis: Optional[int] = 0) -> torch.Tensor:
@@ -620,11 +846,16 @@ class TorchCommunication(Communication):
         if op not in ("sum", "prod", "max", "min"):
             raise ValueError(f"unsupported scan op {op!r}")
         n = self.size
-        if int(array.shape[0]) != n:
+        if int(array.shape[0]) != self.local_size:
             raise ValueError(
                 f"scan expects one block per mesh position: leading axis "
                 f"{array.shape[0]} != mesh size {n}"
             )
+        if self.spans_processes:
+            first = self.local_position()
+            whole = self._stack_all(array)
+            one = TorchCommunication([whole.device] * n)
+            return one.scan(whole, op, exclusive)[first:first + self.local_size]
         if op in ("sum", "prod"):
             fn = torch.cumsum if op == "sum" else torch.cumprod
             out = fn(array, dim=0)
@@ -694,6 +925,7 @@ def grid_comm(
     mesh_shape = tuple(int(s) for s in mesh_shape)
     if positions is None:
         positions = devices
+    _xproc.refuse_across("grid_comm over processes", None)
     if positions is not None:
         return TorchCommunication(positions, mesh_shape=mesh_shape)
     device = get_comm().device
@@ -717,4 +949,70 @@ def sanitize_comm(comm: Optional[TorchCommunication]) -> TorchCommunication:
         return get_comm()
     if not isinstance(comm, TorchCommunication):
         raise TypeError(f"expected a TorchCommunication or None, got {type(comm)}")
+    return comm
+
+
+def init_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    local_device_ids=None,
+) -> TorchCommunication:
+    """Start several controller processes and install the communicator
+    over all their positions (the reference's ``init_multihost``, over
+    ``jax.distributed.initialize``).
+
+    Each process calls this once.  It starts the default
+    ``torch.distributed`` process group, gloo, over
+    ``tcp://<coordinator_address>`` with ``num_processes`` processes, this
+    one ``process_id``; with no address it reads torch's ``env://``
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, as
+    ``torchrun`` sets them).  ``local_device_ids`` lists this process's
+    positions, one device each (CUDA indices, or device names such as
+    ``"cpu"``); by default one position per visible CUDA device, else one
+    ``"cpu"`` position.  Every process's list is exchanged once, here.
+    Every process must own the same number of positions (``ValueError``
+    otherwise).
+
+    The result spans the processes in process order, then local order,
+    as ``jax.devices()`` orders them, and is installed with
+    :func:`use_comm`.  Between processes it moves bytes through gloo,
+    staged through host memory (:attr:`TorchCommunication.transport`).
+    Called again with the group up, it reinstalls the communicator.  A
+    group this call starts is destroyed when the interpreter exits."""
+    import torch.distributed as dist
+
+    if local_device_ids is None:
+        if torch.cuda.is_available():
+            local = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            local = [torch.device("cpu")]
+    else:
+        ids = [local_device_ids] if isinstance(local_device_ids, (int, str, torch.device)) \
+            else list(local_device_ids)
+        local = [torch.device("cuda", i) if isinstance(i, int) else _torch_device(i) for i in ids]
+    if not dist.is_initialized():
+        if coordinator_address is None:
+            dist.init_process_group(_xproc.BACKEND, init_method="env://")
+        else:
+            if num_processes is None or process_id is None:
+                raise ValueError("init_multihost with an address needs num_processes and process_id")
+            dist.init_process_group(
+                _xproc.BACKEND, init_method=f"tcp://{coordinator_address}",
+                world_size=int(num_processes), rank=int(process_id),
+            )
+        # gloo's threads must stop before the interpreter does: a process
+        # that exits with the group up can abort in its teardown
+        atexit.register(_xproc.shutdown)
+    rank, nprocs = dist.get_rank(), dist.get_world_size()
+    lists = _xproc.all_gather_object([str(d) for d in local])
+    counts = sorted({len(v) for v in lists})
+    if len(counts) > 1:
+        raise ValueError(
+            f"every process must own the same number of positions; got {[len(v) for v in lists]}"
+        )
+    positions = [torch.device(d) for v in lists for d in v]
+    positions[rank * len(local):(rank + 1) * len(local)] = local
+    comm = TorchCommunication(positions, process=(rank, nprocs))
+    use_comm(comm)
     return comm

@@ -20,6 +20,20 @@ Invariants:
   is padded to a multiple of that axis, and ``split`` is the tuple's
   compat view, the dimension mesh axis 0 shards.
 
+Across processes (a communicator from :func:`~.communication.init_multihost`)
+a split array's ``_buffer`` would be a global tensor no process holds:
+each process keeps only its *slab*, the rows ``[first * c, (first + pl) *
+c)`` of the padded split axis that its ``pl`` positions own (``first =
+comm.local_position()``), pad rows zero; a replicated array is whole in
+every process.  Such an array's ``larray`` and ``_buffer`` raise
+``NotImplementedError`` naming ROADMAP A3b2, so an op this slice does not
+teach refuses instead of computing on a partial slab; the ops it teaches
+read ``_slab`` (the slab) and ``_local`` (its true rows).  ``lloc``
+indexes the process's true rows, as HeAT's ``lloc`` indexes its local
+tensor.  ``numpy()``, ``item()`` and printing gather the global values
+into every process, so every process must call them (HeAT's ``numpy()``
+and printing gather too).
+
 The layout is canonical, so every array is balanced: ``balance_`` is a
 no-op and ``redistribute_`` accepts only the canonical map, as in the
 reference.  ``__setitem__`` and ``fill_diagonal`` write into a copy and
@@ -36,7 +50,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import types
+from . import _xproc, types
 from ._compile import jitted
 from ._tracing import require_concrete
 from .communication import TorchCommunication
@@ -106,14 +120,15 @@ class LocalIndex:
         self.__obj = obj
 
     def __getitem__(self, key):
-        return self.__obj.larray[key]
+        return self.__obj._local[key]
 
     def __setitem__(self, key, value):
         obj = self.__obj
-        buf = obj._buffer.clone()
+        buf = obj._slab.clone()
         arr = obj._true_view(buf)
         arr[key] = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
-        obj._rebind(DNDarray(buf, obj.gshape, obj.dtype, obj._layout, obj.device, obj.comm))
+        obj._rebind(DNDarray(buf, obj.gshape, obj.dtype, obj._layout, obj.device, obj.comm,
+                             slab=True))
 
 
 class DNDarray:
@@ -131,6 +146,10 @@ class DNDarray:
         A tuple names the mesh axis sharding each dimension (or None).
     device : Device
     comm : TorchCommunication
+    slab : bool
+        Across processes: ``array`` is this process's slab (at its padded
+        or its true length) rather than the global tensor, which is then
+        cut to the slab.  Ignored in one process.
     """
 
     def __init__(
@@ -141,6 +160,7 @@ class DNDarray:
         split,
         device: Device,
         comm: TorchCommunication,
+        slab: bool = False,
     ):
         self.__gshape = tuple(int(s) for s in gshape)
         self.__dtype = types.canonical_heat_type(dtype)
@@ -164,10 +184,33 @@ class DNDarray:
             splits = comm.normalize_splits(ndim, split)
         self.__split = split
         self.__splits = splits
-        self.__array = self.__commit(array)
+        self.__slabbed = comm.spans_processes and split is not None
+        self.__array = self.__commit_slab(array, slab) if self.__slabbed else self.__commit(array)
         self.__halo_prev = None
         self.__halo_next = None
         self.__halo_size = 0
+
+    def __commit_slab(self, array: torch.Tensor, slab: bool) -> torch.Tensor:
+        """This process's slab from its slab (padded or true rows) or from
+        the global tensor (padded or true)."""
+        comm, split = self.__comm, self.__split
+        n = self.__gshape[split]
+        a, b = comm.process_rows(n)
+        have = int(array.shape[split])
+        if not slab:
+            if have not in (n, comm.padded_size(n)):
+                raise ValueError(
+                    f"backing array axis {split} has length {have}; expected the "
+                    f"true length {n} or the padded length {comm.padded_size(n)}"
+                )
+            return comm.slab_of(array, split)
+        span = comm.local_size * comm.shard_width(n)
+        if have not in (b - a, span):
+            raise ValueError(
+                f"slab axis {split} has length {have}; expected this process's "
+                f"{b - a} true rows or its slab length {span}"
+            )
+        return comm.pad_slab(array, n, split)
 
     def __commit(self, array: torch.Tensor) -> torch.Tensor:
         """Bring ``array`` to the at-rest form: pad every ragged sharded
@@ -243,12 +286,21 @@ class DNDarray:
 
     @property
     def larray(self) -> torch.Tensor:
-        """The global tensor at its TRUE shape (a view of the buffer)."""
+        """The global tensor at its TRUE shape (a view of the buffer).
+        Across processes no process holds a split array's global tensor:
+        this raises ``NotImplementedError`` (``lloc`` reads the process's
+        rows)."""
+        if self.__slabbed:
+            _xproc.refuse("an op that reads a split array's global tensor")
         return self._true_view(self.__array)
 
     def _true_view(self, buf: torch.Tensor) -> torch.Tensor:
         """``buf`` (this array's buffer or a copy of it) narrowed to the
-        true shape along every padded sharded dimension."""
+        true shape along every padded sharded dimension (across processes:
+        a slab narrowed to the process's true rows)."""
+        if self.__slabbed:
+            a, b = self.__comm.process_rows(self.__gshape[self.__split])
+            return buf.narrow(self.__split, 0, b - a)
         for d, g in enumerate(self.__splits):
             if g is not None:
                 buf = self.__comm.unpad(buf, self.__gshape[d], d)
@@ -256,14 +308,48 @@ class DNDarray:
 
     @property
     def _buffer(self) -> torch.Tensor:
-        """The padded at-rest buffer (pad rows zero)."""
+        """The padded at-rest buffer (pad rows zero); across processes a
+        split array has none (``NotImplementedError``)."""
+        if self.__slabbed:
+            _xproc.refuse("an op that reads a split array's global buffer")
         return self.__array
+
+    @property
+    def _slab(self) -> torch.Tensor:
+        """This process's part of the at-rest buffer: the slab across
+        processes, the whole buffer in one process."""
+        return self.__array
+
+    @property
+    def _local(self) -> torch.Tensor:
+        """This process's true values: the slab's true rows across
+        processes, :attr:`larray` in one process."""
+        return self._true_view(self.__array)
+
+    @property
+    def _slabbed(self) -> bool:
+        """True when this process holds only its slab (split, across
+        processes)."""
+        return self.__slabbed
+
+    def _gathered(self) -> "DNDarray":
+        """The same array on a one-process communicator of as many
+        positions on this device, every slab gathered (the array itself
+        when it is whole here); every process must call it."""
+        if not self.__slabbed:
+            return self
+        split = self.__split
+        whole = torch.cat(_xproc.all_gather(self.__array), dim=split)
+        one = TorchCommunication([self.__comm.device] * self.__comm.size)
+        return DNDarray(whole, self.__gshape, self.__dtype, split, self.__device, one)
 
     def _zeroed_buffer(self) -> torch.Tensor:
         """The at-rest buffer with every pad forced to zero, for consumers
         that take whole padded blocks (the grid QR and SVD): the buffer
         itself when no dimension is padded, else the true view re-padded
         with zeros (one copy), whatever the buffer's pads hold."""
+        if self.__slabbed:
+            _xproc.refuse("an op that reads a split array's global buffer")
         if self.__array.shape == torch.Size(self.__gshape):
             return self.__array
         comm, splits = self.__comm, self.__splits
@@ -272,12 +358,20 @@ class DNDarray:
 
     @property
     def padshape(self) -> Tuple[int, ...]:
+        """The global at-rest shape (every sharded dimension padded)."""
+        if self.__slabbed:
+            shape = list(self.__gshape)
+            shape[self.__split] = self.__comm.padded_size(shape[self.__split])
+            return tuple(shape)
         return tuple(int(s) for s in self.__array.shape)
 
     @property
     def lshape(self) -> Tuple[int, ...]:
-        """Shape of position 0's shard (a grid's flat position 0)."""
-        _, lshape, _ = self.__comm.chunk(self.__gshape, self._layout, rank=0)
+        """Shape of the calling process's first position's shard
+        (``comm.local_position()``: 0 in one process; a grid's flat
+        position)."""
+        rank = self.__comm.local_position()
+        _, lshape, _ = self.__comm.chunk(self.__gshape, self._layout, rank=rank)
         return lshape
 
     @property
@@ -391,7 +485,8 @@ class DNDarray:
 
     @property
     def lloc(self) -> LocalIndex:
-        """Raw indexer over the global tensor (no split bookkeeping)."""
+        """Raw indexer over the global tensor (no split bookkeeping);
+        across processes over this process's true rows."""
         return LocalIndex(self)
 
     # ------------------------------------------------------------------ #
@@ -399,9 +494,10 @@ class DNDarray:
     # ------------------------------------------------------------------ #
     def numpy(self) -> np.ndarray:
         """The global array on the host (bfloat16 comes back as float32,
-        numpy having no bfloat16)."""
+        numpy having no bfloat16).  Across processes it gathers every slab
+        into every process: each process must call it."""
         require_concrete(".numpy()")
-        t = self.larray.detach()
+        t = self._gathered().larray.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -417,7 +513,7 @@ class DNDarray:
         require_concrete(".item()")
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to Python scalars")
-        return self.larray.reshape(()).item()
+        return self._gathered().larray.reshape(()).item()
 
     def __bool__(self) -> bool:
         require_concrete("bool()")
@@ -448,13 +544,13 @@ class DNDarray:
         require_concrete("repr()")
         from . import printing
 
-        return printing.__str__(self)
+        return printing.__str__(self._gathered())
 
     def __str__(self) -> str:
         require_concrete("print()/str()")
         from . import printing
 
-        return printing.__str__(self)
+        return printing.__str__(self._gathered())
 
     def tolist(self, keepsplit: bool = False) -> list:
         """Nested Python lists of the global values."""
@@ -501,6 +597,8 @@ class DNDarray:
         device = sanitize_device(device)
         if device is self.__device:
             return self
+        if self.__comm.spans_processes:
+            _xproc.refuse("to_device")
         comm = comm_for_device(device)
         return DNDarray(self.larray.to(comm.device), self.__gshape, self.__dtype, self.__split, device, comm)
 
@@ -510,7 +608,8 @@ class DNDarray:
         dtype = types.canonical_heat_type(dtype)
         buf = types._cast(self.__array, dtype.torch_type(), copy=True)
         if copy:
-            return DNDarray(buf, self.__gshape, dtype, self._layout, self.__device, self.__comm)
+            return DNDarray(buf, self.__gshape, dtype, self._layout, self.__device, self.__comm,
+                            slab=True)
         self.__array, self.__dtype = buf, dtype
         self._invalidate_halos()
         return self
@@ -614,8 +713,8 @@ class DNDarray:
         several positions and at least ``_RING_INDEX_MIN`` elements: the
         key the ring gather/scatter serves.  Else None."""
         s = self.__split
-        if (s is None or not self.is_distributed() or self.size < _RING_INDEX_MIN
-                or self.__comm.mesh_ndim > 1):
+        small = self.size < _RING_INDEX_MIN and not self.__slabbed  # across processes: always
+        if s is None or not self.is_distributed() or small or self.__comm.mesh_ndim > 1:
             return None
         if len(key) > self.ndim:
             return None
@@ -662,6 +761,40 @@ class DNDarray:
         self.__array = out.movedim(0, s).contiguous()
         self._invalidate_halos()
 
+    def __xp_take(self, idx: torch.Tensor) -> "DNDarray":
+        """The ring take across processes (clamping): the index is whole in
+        every process, so each process knows which of its rows every
+        other process's output rows need and sends them in one message
+        (:func:`heat_tpu_torch.parallel.take.xp_take`)."""
+        from ..parallel.take import xp_take
+
+        s, n, m = self.__split, self.__gshape[self.__split], int(idx.shape[0])
+        out = xp_take(self._local.movedim(s, 0), idx, comm=self.__comm, n=n)
+        gshape = self.__gshape[:s] + (m,) + self.__gshape[s + 1:]
+        return DNDarray(out.movedim(0, s).contiguous(), gshape, self.__dtype, s, self.__device,
+                        self.__comm, slab=True)
+
+    def __xp_put(self, idx: torch.Tensor, value) -> None:
+        """The ring put across processes: ``value`` is split like the
+        index (a DNDarray at this split) or whole in every process."""
+        from ..parallel.take import xp_put
+
+        s, n, m = self.__split, self.__gshape[self.__split], int(idx.shape[0])
+        vshape = self.__gshape[:s] + (m,) + self.__gshape[s + 1:]
+        if isinstance(value, DNDarray) and value._slabbed:
+            if value.split != s or value.gshape != vshape:
+                _xproc.refuse("a scattered value laid out unlike its index")
+            vals = types._cast(value._local, self.__array.dtype).movedim(s, 0)
+            split_vals = True
+        else:
+            vals = types._cast(self.__value_tensor(value), self.__array.dtype).expand(vshape)
+            vals = vals.movedim(s, 0)
+            split_vals = False
+        out = xp_put(n, idx, vals, comm=self.__comm, base=self._local.movedim(s, 0),
+                     split_vals=split_vals)
+        self.__array = self.__comm.pad_slab(out.movedim(0, s).contiguous(), n, s)
+        self._invalidate_halos()
+
     def __value_tensor(self, value) -> torch.Tensor:
         if isinstance(value, DNDarray):
             value = value.larray
@@ -685,6 +818,8 @@ class DNDarray:
         tkey, _ = self.__process_key(key)
         ridx = self.__ring_index_plan(tkey)
         if ridx is not None:
+            if self.__slabbed:
+                return self.__xp_take(ridx)
             return self.__ring_getitem(ridx)
         result = self.larray[tkey]
         split = self.__advanced_split(tkey, result.ndim)
@@ -730,7 +865,10 @@ class DNDarray:
         tkey, dims = self.__process_key(key, scatter=True)
         ridx = self.__ring_index_plan(tkey)
         if ridx is not None:
-            self.__ring_setitem(ridx, value)
+            if self.__slabbed:
+                self.__xp_put(ridx, value)
+            else:
+                self.__ring_setitem(ridx, value)
             return
         # a copy with one sink row on every axis an integer array indexes:
         # dropped writes land there and are cut off
@@ -746,6 +884,8 @@ class DNDarray:
         self._invalidate_halos()
 
     def __basic_setitem(self, key, value) -> None:
+        if self.__slabbed:
+            _xproc.refuse("assignment with a basic key")
         # one copy of the buffer, written through its true-shape view (the
         # keys stay inside the true shape, so the pad stays zero); buffers
         # are never written in place, as the reference's are immutable: other
@@ -793,6 +933,8 @@ class DNDarray:
 
     def fill_diagonal(self, value) -> "DNDarray":
         """Set the main diagonal of a 2-D array to ``value``, in place."""
+        if self.__slabbed:
+            _xproc.refuse("fill_diagonal")
         if self.ndim != 2:
             raise ValueError("fill_diagonal requires a 2-D DNDarray")
         buf = self.__array.clone()
@@ -812,6 +954,8 @@ class DNDarray:
         ``halo_size`` rows per position along the split axis, the tail of
         position i-1 and the head of position i+1, zeros past the global
         edges (pad rows are zeros)."""
+        if self.__slabbed:
+            _xproc.refuse("get_halo")
         if not isinstance(halo_size, int):
             raise TypeError(f"halo_size needs to be an integer, but was {type(halo_size)}")
         if halo_size < 0:
@@ -874,7 +1018,14 @@ class DNDarray:
         if same:
             # the same layout: a copy, no layout commit
             return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, self.__splits,
-                            self.__device, self.__comm)
+                            self.__device, self.__comm, slab=True)
+        if self.__comm.spans_processes:
+            from .sanitation import sanitize_axis
+
+            axis = sanitize_axis(self.__gshape, axis) if not isinstance(axis, (tuple, list)) else axis
+            arr = self.__comm.commit_split(self.__array, axis, src=self.__split, gshape=self.__gshape)
+            return DNDarray(arr, self.__gshape, self.__dtype, axis, self.__device, self.__comm,
+                            slab=True)
         arr = self.__comm.commit_split(self.larray, axis, src=self.__splits)
         if arr.untyped_storage().data_ptr() == self.__array.untyped_storage().data_ptr():
             arr = arr.contiguous().clone()
@@ -1403,7 +1554,10 @@ class DNDarray:
     def _rebind(self, other: "DNDarray") -> None:
         """Take over ``other``'s buffer, shape, type and layout (the
         ``out=`` contract of the op engine)."""
-        self.__array = other._buffer
+        if other.comm != self.__comm and (other._slabbed or self.__slabbed):
+            _xproc.refuse("out= on another communicator")
+        self.__array = other._slab
+        self.__slabbed = other._slabbed
         self.__gshape = other.gshape
         self.__dtype = other.dtype
         self.__split = other.split

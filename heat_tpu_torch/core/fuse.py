@@ -395,6 +395,10 @@ class _FusedFunction:
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs):
+        from . import _xproc
+
+        _xproc.refuse_across("htt.fuse", None, *[a for a in (*args, *kwargs.values())
+                                                 if isinstance(a, DNDarray)])
         if in_trace():
             # nested fuse (or inside fuse.trace()): inline into the
             # enclosing trace instead of building a second program

@@ -16,8 +16,12 @@ scanner (:mod:`heat_tpu_torch.native`), with numpy as the fallback.
 The file opens run under the bounded, seeded io retry policy with the
 ``io_open`` fault seam in front of them; loads credit ``io:read`` and
 ``io:h2d`` spans and ``account_bytes("io", ...)`` while telemetry is on.
-Positions live in one process here, so the reference's cross-process
-barriers reduce to raising the writer's error.
+Across processes (:func:`heat_tpu_torch.init_multihost`) a load reads
+each process's own positions' slabs into its slab, and a save has one
+writer, process 0, which fetches every other process's rows one process
+at a time; the writer's outcome is gathered, so a failed save raises on
+every process (the reference's failure flag), and every process may read
+the file once the save returns.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from ..telemetry import _core as _tel
-from . import factories, types
+from . import _xproc, factories, types
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
@@ -174,17 +178,25 @@ def _sharded_from_reader(shape, hdtype, split, device, comm, read_slices) -> DND
     def _tensor(block):
         return torch.from_numpy(np.ascontiguousarray(block)).to(tdtype)
 
+    # across processes each process reads its own positions' slabs into
+    # its slab of the buffer
+    first, local = comm.local_position(), comm.local_size
+    slab = comm.spans_processes and split is not None
+
     def _commit():
         if split is None or comm.size == 1:
             return _tensor(_read(tuple(slice(None) for _ in shape), False)).to(target)
         padded = list(shape)
-        padded[split] = comm.padded_size(shape[split])
+        padded[split] = comm.padded_size(shape[split]) // comm.nprocs
+        offset = first * comm.shard_width(shape[split]) if slab else 0
         buf = torch.zeros(padded, dtype=tdtype, device=target)
-        for r in range(comm.size):
+        for r in range(first, first + local):
             _, _, slices = comm.chunk(shape, split, rank=r)
             if any(s.stop <= s.start for s in slices):
                 continue
-            buf[slices].copy_(_tensor(_read(slices, True)))
+            into = tuple(slice(s.start - offset, s.stop - offset) if d == split else s
+                         for d, s in enumerate(slices))
+            buf[into].copy_(_tensor(_read(slices, True)))
         return buf
 
     if _tel.enabled:
@@ -193,7 +205,7 @@ def _sharded_from_reader(shape, hdtype, split, device, comm, read_slices) -> DND
         _tel.account_bytes("io", "h2d", total_bytes, total_bytes)
     else:
         garr = _commit()
-    return DNDarray(garr, shape, hdtype, split, device, comm)
+    return DNDarray(garr, shape, hdtype, split, device, comm, slab=slab)
 
 
 def load_hdf5(
@@ -233,7 +245,15 @@ def _emit_slabs(data, write):
     whole, as a replicated one) to ``write(slices, block)`` one position
     at a time (host memory holds one slab).  A ``write`` failure is
     returned, not raised, for the caller to raise after closing the file.
-    The ``save-slab`` preemption seam sits before each write."""
+    The ``save-slab`` preemption seam sits before each write.
+
+    Across processes process 0 writes (``write`` is None elsewhere) and
+    fetches every other process's true rows, one process at a time; every
+    process calls this, each sending its rows once."""
+    if isinstance(data, DNDarray) and data._slabbed:
+        return _xp_emit_slabs(data, write)
+    if write is None:  # not the writer: a whole array is written by process 0
+        return None
     if isinstance(data, np.ndarray) or data.split is None:
         block = data if isinstance(data, np.ndarray) else _host(data.larray)
         try:
@@ -254,18 +274,69 @@ def _emit_slabs(data, write):
     return None
 
 
+def _xp_emit_slabs(data: DNDarray, write):
+    """:func:`_emit_slabs` of a slab array across processes."""
+    comm, split = data.comm, data.split
+    n, err = data.shape[split], None
+    for k in range(comm.nprocs):
+        a, b = comm.process_rows(n, k)
+        if b <= a:
+            continue
+        if comm.rank == k and k != 0:
+            _xproc.exchange({0: data._local}, {}, data._local.device)
+            continue
+        if comm.rank != 0:
+            continue
+        if k == 0:
+            block = data._local
+        else:
+            shape = list(data.shape)
+            shape[split] = b - a
+            block = _xproc.exchange({}, {k: (shape, data._local.dtype)}, data._local.device)[k]
+        if write is None or err is not None:
+            continue
+        slices = tuple(slice(a, b) if d == split else slice(0, s) for d, s in enumerate(data.shape))
+        try:
+            _faults().preempt_point("save-slab")
+            write(slices, _host(block))
+        except Exception as e:  # noqa: BLE001 — deferred to the caller
+            err = e
+    return err
+
+
+def _xp_raise(err: Optional[BaseException], path: str) -> None:
+    """Across processes: the writer's outcome on every process, so a
+    failed save raises everywhere (the reference's gathered failure
+    flag); also the point after which every process may read the file."""
+    said = _xproc.all_gather_object(None if err is None else f"{type(err).__name__}: {err}")
+    if err is not None:
+        raise err
+    failed = [m for m in said if m is not None]
+    if failed:
+        raise OSError(f"saving {path} failed on the writer (process 0): {failed[0]}")
+
+
 def _writer_save(data: DNDarray, prepare, path: str, mode: str = "w") -> None:
     """Save through ``prepare(target) -> (write, close)`` on a staged
     temporary file, committed over ``path`` only after a clean close; on
-    any error the temporary is discarded and the previous file survives."""
-    err, close, tmp = None, None, None
+    any error the temporary is discarded and the previous file survives.
+    Across processes process 0 is the only writer, and its failure raises
+    on every process."""
+    across = data.comm.spans_processes
+    writer = not across or data.comm.rank == 0
+    err, close, tmp, write = None, None, None, None
     try:
-        _faults().io_open(path)
-        tmp = _atomic_begin(path, mode)
-        write, close = prepare(tmp)
-        err = _emit_slabs(data, write)
+        if writer:
+            _faults().io_open(path)
+            tmp = _atomic_begin(path, mode)
+            write, close = prepare(tmp)
     except Exception as e:  # noqa: BLE001
         err = e
+    if err is None or across:
+        try:
+            err = _emit_slabs(data, write if err is None else None) or err
+        except Exception as e:  # noqa: BLE001
+            err = err or e
     if close is not None:
         try:
             close()
@@ -279,6 +350,8 @@ def _writer_save(data: DNDarray, prepare, path: str, mode: str = "w") -> None:
                 err = e
         else:
             _atomic_abort(tmp)
+    if across:
+        _xp_raise(err, path)
     if err is not None:
         raise err
 
@@ -287,24 +360,36 @@ def _save_hdf5_many(path: str, datasets, attrs=None, mode: str = "w") -> None:
     """Write several datasets, in the order given as ``(key, array)``
     pairs (a DNDarray, or a host array written as a replicated one), plus
     file attributes in one file open and one atomic commit (shared by the
-    estimator checkpoints and the loop snapshots)."""
+    estimator checkpoints and the loop snapshots).  Across processes
+    process 0 writes every dataset and the attributes in one pass, and
+    its failure raises on every process."""
     datasets = list(datasets)
+    across = any(isinstance(a, DNDarray) and a.comm.spans_processes for _, a in datasets)
+    writer = not across or _xproc.group_rank() == 0
     err, f, tmp = None, None, None
     try:
-        _faults().io_open(path)
-        tmp = _atomic_begin(path, mode)
-        f = h5py.File(tmp, mode)
+        if writer:
+            _faults().io_open(path)
+            tmp = _atomic_begin(path, mode)
+            f = h5py.File(tmp, mode)
+    except Exception as e:  # noqa: BLE001
+        err = e
+    try:
         for key, arr in datasets:
-            dtype = arr.dtype if isinstance(arr, np.ndarray) else _np_dtype(arr.dtype)
-            dset = f.create_dataset(key, arr.shape, dtype=dtype)
-            err = _emit_slabs(arr, dset.__setitem__)
-            if err is not None:
+            write = None
+            if f is not None and err is None:
+                dtype = arr.dtype if isinstance(arr, np.ndarray) else _np_dtype(arr.dtype)
+                write = f.create_dataset(key, arr.shape, dtype=dtype).__setitem__
+            if write is None and not across:
                 break
-        if err is None and attrs:
+            err = _emit_slabs(arr, write) or err
+            if err is not None and not across:
+                break
+        if err is None and attrs and f is not None:
             for k, v in attrs.items():
                 f.attrs[k] = v
     except Exception as e:  # noqa: BLE001
-        err = e
+        err = err or e
     if f is not None:
         try:
             f.close()
@@ -318,6 +403,8 @@ def _save_hdf5_many(path: str, datasets, attrs=None, mode: str = "w") -> None:
                 err = e
         else:
             _atomic_abort(tmp)
+    if across:
+        _xp_raise(err, path)
     if err is not None:
         raise err
 

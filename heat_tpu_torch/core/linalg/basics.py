@@ -27,7 +27,7 @@ from typing import List, Optional
 
 import torch
 
-from .. import types
+from .. import _xproc, types
 from .._compile import jitted
 from .._operations import _out
 from .._tracing import in_trace, record_dispatch
@@ -207,6 +207,8 @@ def matmul(
                 )
     promoted = types.promote_types(a.dtype, b.dtype)
     dtype = promoted.torch_type()
+    if a._slabbed or b._slabbed:
+        return _out(out, _xp_matmul(a, b, promoted, precision))
     grid = _grid_layout(a, b)
 
     def product():
@@ -216,6 +218,39 @@ def matmul(
     garr = _summa_grid(a, b, grid, product) if grid else product()
     split = (0, 1) if grid else _result_split_matmul(a, b, garr.ndim)
     return _out(out, DNDarray(garr, tuple(garr.shape), promoted, split, a.device, a.comm))
+
+
+def _xp_matmul(a: DNDarray, b: DNDarray, promoted, precision) -> DNDarray:
+    """:func:`matmul` of matrices across processes, laid out as in one
+    process (:func:`_result_split_matmul`): with ``a`` split on its rows
+    each process multiplies its rows by the whole ``b``; a replicated ``a``
+    multiplies ``b``'s columns; a product that contracts the split axis
+    sums the processes' partial products in process order."""
+    if a.ndim != 2 or b.ndim != 2:
+        _xproc.refuse("matmul of vectors or batches")
+    dtype = promoted.torch_type()
+    comm = a.comm
+    split = _result_split_matmul(a, b, 2)
+    gshape = (a.shape[0], b.shape[1])
+
+    def whole(x):
+        return x.resplit(None).larray if x._slabbed else x.larray
+
+    with _matmul_precision(precision):
+        if a.split == 0:
+            res = _mm(a._local.to(dtype), whole(b).to(dtype))
+            return DNDarray(res, gshape, promoted, 0, a.device, comm, slab=True)
+        if a.split is None and b.split == 1:
+            res = _mm(a.larray.to(dtype), b._local.to(dtype))
+            return DNDarray(res, gshape, promoted, 1, a.device, comm, slab=True)
+        # the contraction runs along the split: a's columns meet b's rows
+        lhs = a if a.split == 1 else None
+        rhs = b if b.split == 0 else b.resplit(0)
+        k0, k1 = comm.process_rows(a.shape[1])
+        left = lhs._local if lhs is not None else a.larray[:, k0:k1]
+        part = _mm(left.to(dtype), rhs._local.to(dtype))
+    res = torch.stack(_xproc.all_gather(part)).sum(dim=0)
+    return DNDarray(res, gshape, promoted, split, a.device, comm)
 
 
 def dot(a, b, out: Optional[DNDarray] = None):
@@ -252,6 +287,10 @@ def norm(a: DNDarray) -> DNDarray:
     DNDarray (``float()`` of it is the caller's host sync), in every
     layout: the sum runs over the true view, so no pad enters it."""
     sanitize_in(a)
+    if a._slabbed:
+        x = a._local.to(torch.float32) if types.heat_type_is_exact(a.dtype) else a._local
+        sq = torch.stack(_xproc.all_gather(torch.sum(x * x).reshape(1))).sum()
+        return _scalar(a, torch.sqrt(sq))
     x = _inexact(a)
     comm, splits = a.comm, a.splits
     key = ("linalg.norm", comm, splits, tuple(x.shape), str(x.dtype))

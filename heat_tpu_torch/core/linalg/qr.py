@@ -33,7 +33,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .. import types
+from .. import _xproc, types
 from ...comm._costs import grid_panel_bounds, grid_qr_model
 from ...comm.overlap import overlap_enabled
 from ..dndarray import DNDarray
@@ -230,6 +230,7 @@ def qr(a: DNDarray, tiles_per_proc: int = 1, calc_q: bool = True, overwrite_a: b
     ``overwrite_a`` is accepted and ignored (the input is never written).
     """
     sanitize_in(a)
+    _xproc.refuse_across("linalg.qr", a)
     if not isinstance(tiles_per_proc, (int, np.integer)):
         raise TypeError(f"tiles_per_proc must be an int, got {type(tiles_per_proc)}")
     if tiles_per_proc < 1:

@@ -25,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from .. import types
+from .. import _xproc, types
 from ...comm._costs import qdwh_svd_model
 from ...comm.overlap import overlap_enabled
 from .._compile import jitted
@@ -274,6 +274,7 @@ def svd(a: DNDarray, full_matrices: bool = False, compute_uv: bool = True):
     a ``(0, 1)`` or ``(1, 0)`` operand takes the QDWH polar SVD: U at
     ``(0, 1)``, S and V replicated (a wide operand's V at ``(0, 1)``)."""
     sanitize_in(a)
+    _xproc.refuse_across("linalg.svd", a)
     if a.ndim != 2:
         raise ValueError(f"svd requires a 2-D DNDarray, got {a.ndim}-d")
     if full_matrices:

@@ -25,6 +25,10 @@ def _any(a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
     return torch.any(a, dim=axes, keepdim=keepdims) if axes else a.to(torch.bool)
 
 
+_operations.XP_COMBINE[_all] = lambda t: torch.all(t, dim=0)
+_operations.XP_COMBINE[_any] = lambda t: torch.any(t, dim=0)
+
+
 def all(x, axis=None, out=None, keepdims=None, keepdim=None):
     """True where every element (along ``axis``) is nonzero."""
     return _operations.__reduce_op(_all, x, axis, out, keepdims=merge_keepdims(keepdims, keepdim))

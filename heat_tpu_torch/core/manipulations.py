@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import factories, types
+from . import _xproc, factories, types
 from ._tracing import NO_OVERRIDE, consume_layout_override, layout_plan_active
 from .dndarray import DNDarray
 from .sanitation import sanitize_in
@@ -274,14 +274,44 @@ def reshape(a: DNDarray, shape, new_split: Optional[int] = None, **kwargs) -> DN
         shape = tuple(a.size // max(known, 1) if s == -1 else s for s in shape)
     if int(np.prod(shape)) != a.size:
         raise ValueError(f"cannot reshape array of size {a.size} into shape {shape}")
-    garr = a.larray.reshape(shape)
     if new_split is None:
         new_split = a.split if (a.split is not None and a.split < len(shape)) else (
             0 if a.split is not None and len(shape) > 0 else None
         )
     else:
         new_split = sanitize_axis(shape, new_split)
+    if a._slabbed:
+        return _xp_reshape(a, shape, new_split)
+    garr = a.larray.reshape(shape)
     return _rewrap(a, garr, new_split, a.dtype)
+
+
+def _xp_reshape(a: DNDarray, shape: Tuple[int, ...], new_split) -> DNDarray:
+    """:func:`reshape` across processes.  Row-major order makes each
+    process's rows of an axis-0 split one contiguous range of flat
+    elements, so at split 0 on both sides each process sends each other
+    process the overlap of its range with the other's new range, in one
+    message; other splits go through split 0 on the way in and out."""
+    if not shape or not a.ndim:
+        _xproc.refuse("a reshape to or from 0-d")
+    src = a if a.split == 0 else a.resplit(0)
+    comm = a.comm
+    inner_in, inner_out = int(np.prod(a.shape[1:])), int(np.prod(shape[1:]))
+    have = [tuple(v * inner_in for v in comm.process_rows(a.shape[0], k)) for k in range(comm.nprocs)]
+    want = [tuple(v * inner_out for v in comm.process_rows(shape[0], k)) for k in range(comm.nprocs)]
+    flat = src._local.reshape(-1)
+    lo, hi = have[comm.rank]
+    sends, recvs = {}, {}
+    for j in range(comm.nprocs):
+        s0, s1 = max(lo, want[j][0]), min(hi, want[j][1])
+        sends[j] = flat[max(s0 - lo, 0):max(s1 - lo, 0)]
+        r0, r1 = max(have[j][0], want[comm.rank][0]), min(have[j][1], want[comm.rank][1])
+        recvs[j] = ((max(r1 - r0, 0),), flat.dtype)
+    got = _xproc.exchange(sends, recvs, flat.device)
+    rows = (want[comm.rank][1] - want[comm.rank][0]) // max(inner_out, 1)
+    local = torch.cat([got[j] for j in range(comm.nprocs)]).reshape((rows,) + tuple(shape[1:]))
+    out = DNDarray(local, shape, a.dtype, 0, a.device, comm, slab=True)
+    return out if new_split == 0 else out.resplit(new_split)
 
 
 def _planned_axis(arr: DNDarray, axis):
@@ -327,7 +357,10 @@ def _resplit(arr: DNDarray, axis) -> DNDarray:
             return DNDarray(garr, arr.shape, arr.dtype, splits, arr.device, comm)
     axis = sanitize_axis(arr.shape, axis)
     if axis == arr.split:
-        return DNDarray(arr._buffer, arr.shape, arr.dtype, axis, arr.device, arr.comm)
+        return DNDarray(arr._slab, arr.shape, arr.dtype, axis, arr.device, arr.comm, slab=True)
+    if comm.spans_processes:
+        garr = comm.commit_split(arr._slab, axis, src=arr.split, gshape=arr.shape)
+        return DNDarray(garr, arr.shape, arr.dtype, axis, arr.device, comm, slab=True)
     garr = arr.comm.commit_split(arr.larray, axis, src=arr.split)
     return DNDarray(garr, arr.shape, arr.dtype, axis, arr.device, arr.comm)
 
@@ -355,9 +388,11 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
     axis = sanitize_axis(a.shape, axis)
     if axis is None:
         axis = a.ndim - 1
-    arr = a.larray
     from ..parallel import sort as _psort
 
+    if a._slabbed:
+        return _xp_sort(a, axis, descending, out)
+    arr = a.larray
     if a.split == axis and _psort.supports_axis(arr.dtype, a.shape, axis, a.comm):
         values, indices = _psort.sort_axis0(arr.movedim(axis, 0), a.shape[axis], comm=a.comm,
                                             descending=descending)
@@ -372,6 +407,30 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
         out._rebind(vals)
         return out, idx
     return vals, idx
+
+
+def _xp_sort(a: DNDarray, axis: int, descending: bool, out):
+    """:func:`sort` across processes.  Along another axis each process
+    sorts its rows.  Along the split axis this slice gathers the array
+    into every process, runs the one-process sort on the same number of
+    positions and keeps each process's slab, so values and indices are
+    the one-process sort's; a sort that moves only each element's share
+    across processes is ROADMAP A3b2."""
+    if out is not None:
+        _xproc.refuse("sort with out=")
+    if axis == a.split:
+        vals, idx = sort(a._gathered(), axis, descending)
+        return (DNDarray(vals.larray, a.gshape, a.dtype, a.split, a.device, a.comm),
+                DNDarray(idx.larray, a.gshape, types.int32, a.split, a.device, a.comm))
+    from ..parallel import sort as _psort
+
+    arr = a._local
+    key = _psort.descending_key(arr) if descending else arr
+    indices = _psort.stable_argsort(key, axis)
+    values = _psort.from_bits(torch.gather(_psort.as_bits(arr), axis, indices), arr.dtype)
+    return (DNDarray(values.contiguous(), a.gshape, a.dtype, a.split, a.device, a.comm, slab=True),
+            DNDarray(indices.to(torch.int32).contiguous(), a.gshape, types.int32, a.split, a.device,
+                     a.comm, slab=True))
 
 
 def shape(a: DNDarray) -> tuple:

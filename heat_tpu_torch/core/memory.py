@@ -18,8 +18,8 @@ def copy(x):
 
     if not isinstance(x, DNDarray):
         raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
-    src = x._buffer if x.comm.mesh_ndim == 1 else x.larray
-    return DNDarray(src.clone(), x.gshape, x.dtype, x.split, x.device, x.comm)
+    src = x._slab if x.comm.mesh_ndim == 1 else x.larray
+    return DNDarray(src.clone(), x.gshape, x.dtype, x.split, x.device, x.comm, slab=True)
 
 
 def sanitize_memory_layout(x, order: str = "C"):

@@ -27,6 +27,11 @@ on the card.  Every stream but ``randn``'s equals the reference's bit for
 bit; ``randn`` goes through ``log1p``, whose last bit XLA's and torch's
 implementations may round differently (``tests/test_torch_random.py``
 states the bound).
+
+Across processes (:func:`heat_tpu_torch.init_multihost`) ``rand`` and
+``randn`` of a split array draw only the process's slab: each element
+hashes its own global counter, so the slab holds the same bits as the
+one-process draw's rows.
 """
 
 from __future__ import annotations
@@ -126,16 +131,41 @@ def _consume(n: int) -> Tuple[int, int]:
     return _threefry(key, 0, data)
 
 
-def _bits(key: Tuple[int, int], width: int, shape, device) -> torch.Tensor:
+def _bits(key: Tuple[int, int], width: int, shape, device, index=None) -> torch.Tensor:
     """``width`` random bits per element of ``shape``, as int64 (a 64-bit
-    draw holds the unsigned pattern)."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    draw holds the unsigned pattern); ``index`` gives the elements' counters
+    (a slab's global flat indices) where they are not ``arange``."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device) if index is None else index
     b1, b2 = _threefry(key, idx >> 32, idx & _M32)
     bits = (b1 << 32) | b2 if width == 64 else (b1 ^ b2) & ((1 << width) - 1)
-    return bits.reshape(shape)
+    return bits.reshape(idx.shape if index is not None else shape)
 
 
-def _uniform01(key, shape, dtype: torch.dtype, device) -> torch.Tensor:
+def _slab_index(shape, split: int, comm, device) -> torch.Tensor:
+    """The global flat indices of this process's true rows of a ``shape``
+    array split at ``split``, laid out as those rows."""
+    a, b = comm.process_rows(shape[split])
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        lo, hi = (a, b) if d == split else (0, shape[d])
+        view = [1] * len(shape)
+        view[d] = hi - lo
+        idx = idx + (torch.arange(lo, hi, dtype=torch.int64, device=device) * stride).reshape(view)
+        stride *= shape[d]
+    return idx
+
+
+def _draw_index(shape, split, comm):
+    """The counters to draw for a ``shape`` array at ``split``: None for all
+    of them, a slab's across processes."""
+    split = sanitize_axis(shape, split) if shape else None
+    if split is None or not comm.spans_processes:
+        return None
+    return _slab_index(shape, split, comm, comm.device)
+
+
+def _uniform01(key, shape, dtype: torch.dtype, device, index=None) -> torch.Tensor:
     """Uniform [0, 1) in ``dtype``: random mantissa bits under the
     exponent of 1.0, minus 1 (bfloat16 draws 8 bits, the others their
     width)."""
@@ -145,7 +175,7 @@ def _uniform01(key, shape, dtype: torch.dtype, device) -> torch.Tensor:
         torch.float16: (16, 10, torch.int16, 0x3C00),
         torch.bfloat16: (8, 7, torch.int16, 0x3F80),
     }[dtype]
-    bits = _bits(key, nbits, shape, device)
+    bits = _bits(key, nbits, shape, device, index)
     mant = (bits >> (nbits - nmant)) & ((1 << nmant) - 1)  # logical shift
     return (mant | one).to(view).view(dtype) - 1.0
 
@@ -229,7 +259,11 @@ def _size(shape) -> Tuple[int, ...]:
     raise TypeError(f"expected sequence object or single int, got {type(shape)}")
 
 
-def _finalize(garr: torch.Tensor, dtype, split, device, comm) -> DNDarray:
+def _finalize(garr: torch.Tensor, dtype, split, device, comm, gshape=None) -> DNDarray:
+    """The draw as a DNDarray; ``gshape`` marks ``garr`` a slab of it."""
+    if gshape is not None:
+        return DNDarray(garr, tuple(gshape), dtype, sanitize_axis(gshape, split), device, comm,
+                        slab=True)
     split = sanitize_axis(tuple(garr.shape), split) if garr.ndim else None
     return DNDarray(garr, tuple(garr.shape), dtype, split, device, comm)
 
@@ -246,7 +280,9 @@ def rand(*args, dtype=types.float32, split=None, device=None, comm=None) -> DNDa
     sanitize_axis(shape, split)
     device, comm = _setup(device, comm)
     key = _consume(math.prod(shape))
-    return _finalize(_uniform01(key, shape, dtype.torch_type(), comm.device), dtype, split, device, comm)
+    index = _draw_index(shape, split, comm)
+    return _finalize(_uniform01(key, shape, dtype.torch_type(), comm.device, index), dtype, split,
+                     device, comm, None if index is None else shape)
 
 
 def random_sample(shape=None, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
@@ -352,10 +388,11 @@ def randn(*args, dtype=types.float32, split=None, device=None, comm=None) -> DND
     key = _consume(math.prod(shape))
     lo = torch.nextafter(torch.tensor(-1.0, dtype=tdt), torch.tensor(0.0, dtype=tdt)).item()
     span = (torch.tensor(1.0, dtype=tdt) - lo).item()  # rounds to 2.0, as in the reference
-    u = _uniform01(key, shape, tdt, comm.device) * span + lo
+    index = _draw_index(shape, split, comm)
+    u = _uniform01(key, shape, tdt, comm.device, index) * span + lo
     u = torch.clamp_min(u, lo)
     garr = _erfinv(u) * torch.tensor(np.sqrt(2.0), dtype=tdt).item()
-    return _finalize(garr.to(tdt), dtype, split, device, comm)
+    return _finalize(garr.to(tdt), dtype, split, device, comm, None if index is None else shape)
 
 
 def _shuffle(key, n: int, device) -> torch.Tensor:

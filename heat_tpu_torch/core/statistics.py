@@ -20,7 +20,7 @@ import builtins
 
 import numpy as np
 
-from . import _operations, factories, types
+from . import _operations, _xproc, factories, types
 from ._compile import jitted
 from .dndarray import DNDarray
 from .fuse import fuse
@@ -49,12 +49,42 @@ __all__ = [
 
 
 def _wrap_reduced(x: DNDarray, res: torch.Tensor, axis, keepdims: bool = False) -> DNDarray:
-    split = _operations._reduced_split(x, _operations._axes(x.ndim, axis), keepdims)
+    axes = _operations._axes(x.ndim, axis)
+    split = _operations._reduced_split(x, axes, keepdims)
     if res.ndim == 0:
         split = None
+    if x._slabbed:  # a slab along the kept split axis, else whole
+        return DNDarray(res, _operations._reduced_gshape(x, axes, keepdims),
+                        types.canonical_heat_type(res.dtype), split, x.device, x.comm, slab=True)
     return DNDarray(
         res, tuple(res.shape), types.canonical_heat_type(res.dtype), split, x.device, x.comm
     )
+
+
+def _xp_moment(x: DNDarray, dims: tuple, keepdims: bool, cast, kind: str, ddof: int = 0):
+    """Exact mean, var or std over ``dims`` across processes: each process
+    folds its true rows, the partial sums combine in process order, and
+    var/std take a second pass about the combined mean; along other axes
+    the slab reduces alone."""
+    a = x._local.to(cast) if cast is not None else x._local
+    if x.split not in dims:
+        if kind == "mean":
+            return torch.mean(a, dim=dims, keepdim=keepdims)
+        r = torch.var(a, dim=dims, correction=ddof, keepdim=keepdims)
+        return torch.sqrt(r) if kind == "std" else r
+
+    def combined(t):
+        return torch.stack(_xproc.all_gather(torch.sum(t, dim=dims, keepdim=True))).sum(dim=0)
+
+    count = math.prod(int(x.gshape[d]) for d in dims)
+    mu = combined(a) / count
+    if kind == "mean":
+        res = mu
+    else:
+        res = combined((a - mu) ** 2) / (count - ddof)
+        res = torch.sqrt(res) if kind == "std" else res
+    shape = _operations._reduced_gshape(x, dims, keepdims)
+    return res.reshape(shape)
 
 
 def _compressed_moment(x: DNDarray, axis, keepdims: bool, kind: str, ddof: int = 0):
@@ -74,7 +104,7 @@ def _compressed_moment(x: DNDarray, axis, keepdims: bool, kind: str, ddof: int =
         return None
     from ..comm import compressed as _cq
 
-    buf = x._buffer
+    buf = x._slab
     true_n = math.prod(int(x.gshape[a]) for a in axes)
     if kind == "mean":
         return _cq.reduce_q(
@@ -94,6 +124,9 @@ def mean(x, axis=None, keepdims=None, keepdim=None) -> DNDarray:
     sanitize_in(x)
     axis = sanitize_axis(x.shape, axis)
     res = _compressed_moment(x, axis, keepdims, kind="mean")
+    if res is None and x._slabbed:
+        cast = torch.float32 if types.heat_type_is_exact(x.dtype) else None
+        res = _xp_moment(x, _operations._axes(x.ndim, axis), keepdims, cast, "mean")
     if res is None:
         cast = torch.float32 if types.heat_type_is_exact(x.dtype) else None
         dims = _operations._axes(x.ndim, axis)
@@ -116,6 +149,9 @@ def _moment2(x, axis, ddof, kwargs, kind: str) -> DNDarray:
     if kwargs:
         raise TypeError(f"unexpected keyword arguments: {sorted(kwargs)}")
     res = _compressed_moment(x, axis, keepdims, kind=kind, ddof=ddof)
+    if res is None and x._slabbed:
+        cast = torch.float32 if types.heat_type_is_exact(x.dtype) else None
+        res = _xp_moment(x, _operations._axes(x.ndim, axis), keepdims, cast, kind, ddof)
     if res is None:
         cast = torch.float32 if types.heat_type_is_exact(x.dtype) else None
         dims = _operations._axes(x.ndim, axis)
@@ -147,6 +183,10 @@ def _amin(a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
 
 def _amax(a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:
     return torch.amax(a, dim=axes, keepdim=keepdims) if axes else a.clone()
+
+
+_operations.XP_COMBINE[_amin] = lambda t: torch.amin(t, dim=0)
+_operations.XP_COMBINE[_amax] = lambda t: torch.amax(t, dim=0)
 
 
 def _arg(fn, a: torch.Tensor, axes: tuple, keepdims: bool) -> torch.Tensor:

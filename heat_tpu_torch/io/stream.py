@@ -358,6 +358,10 @@ def stream_chunks(
     if not sources:
         raise ValueError("stream_chunks needs at least one source")
     device, comm = factories._setup(device, comm)
+    if comm.spans_processes:
+        from ..core import _xproc
+
+        _xproc.refuse("io streaming")
     mb = int(mini_batch)
     if mb <= 0:
         raise ValueError(f"mini_batch must be >= 1, got {mb}")

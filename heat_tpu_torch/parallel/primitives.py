@@ -195,6 +195,32 @@ def prefix_scan(x, op: str = "sum", comm: Optional[TorchCommunication] = None, a
     return out.movedim(0, axis) if axis != 0 else out
 
 
+def xp_prefix_scan(slab: torch.Tensor, op: str, comm: TorchCommunication, axis: int, n: int):
+    """:func:`prefix_scan` across processes, on this process's slab of an
+    axis of length ``n`` split over ``comm``: the same two levels, the
+    totals of every position gathered, so each element is the one-process
+    scan's bit for bit.  Returns the slab's true rows."""
+    from ..core import _xproc
+
+    cum, ident, reduce_fn = _SCAN_OPS[op]
+    arr = slab.movedim(axis, 0) if axis != 0 else slab
+    a, b = comm.process_rows(n)
+    if ident != 0 and b - a != int(arr.shape[0]):
+        arr = arr.clone()
+        arr[b - a:] = ident
+    pl, size, first = comm.local_size, comm.size, comm.local_position()
+    local = local_scan(_stacked(arr, pl), op, 1)
+    totals = torch.cat(_xproc.all_gather(local[:, -1]))  # (p, ...)
+    before = torch.arange(size, device=arr.device)
+    mine = before[first:first + pl]
+    mask = (before[None, :] < mine[:, None]).reshape((pl, size) + (1,) * (totals.ndim - 1))
+    offsets = reduce_fn(torch.where(mask, totals[None], torch.full_like(totals, ident)[None]), dim=1)
+    offsets = offsets.to(local.dtype)[:, None]
+    out = (local + offsets) if op == "sum" else (local * offsets)
+    out = out.reshape((-1,) + tuple(out.shape[2:]))[: b - a]
+    return out.movedim(0, axis) if axis != 0 else out
+
+
 def prefix_sum(x, comm: Optional[TorchCommunication] = None, axis: int = 0):
     """Cumulative sum along a split axis — ``prefix_scan(x, "sum")``."""
     return prefix_scan(x, "sum", comm=comm, axis=axis)

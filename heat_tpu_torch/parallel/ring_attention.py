@@ -104,6 +104,10 @@ def ring_attention(
         raise ValueError(f"local_kernel must be auto|flash|xla, got {local_kernel!r}")
     if isinstance(q, DNDarray):
         comm = comm or q.comm
+    from ..core import _xproc
+
+    _xproc.refuse_across("ring_attention", comm)
+    if isinstance(q, DNDarray):
         q, k, v = q.larray, k.larray, v.larray
     comm = sanitize_comm(comm)
     size = comm.size

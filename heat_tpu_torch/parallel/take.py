@@ -35,7 +35,7 @@ import torch
 from ..core.communication import TorchCommunication, sanitize_comm
 from .sort import as_bits, from_bits
 
-__all__ = ["ring_take", "ring_put"]
+__all__ = ["ring_take", "ring_put", "xp_take", "xp_put"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -167,3 +167,84 @@ def ring_put(
         flat.scatter_(0, row, v)
     out = from_bits(out[:, :wo].reshape((p * wo,) + trail), dtype)
     return out if padded_out else comm.unpad(out, n, 0)
+
+
+# --------------------------------------------------------------------- #
+# across processes                                                        #
+# --------------------------------------------------------------------- #
+def xp_take(local: torch.Tensor, idx: torch.Tensor, comm: TorchCommunication, n: int) -> torch.Tensor:
+    """The ring take across processes, clamping: ``local`` is this
+    process's true rows of an (n, ...) tensor split along axis 0, ``idx``
+    (m,) is whole in every process; returns this process's true rows of
+    the (m, ...) result.  Every process knows which of its rows each other
+    process's output rows need, so each pair of processes exchanges one
+    message, and nothing asks first."""
+    from ..core import _xproc
+
+    m, rank = int(idx.shape[0]), comm.rank
+    idx = _sanitize_index(idx.to(local.device), n, clip=True)
+    src = [comm.process_rows(n, k) for k in range(comm.nprocs)]
+    dst = [comm.process_rows(m, k) for k in range(comm.nprocs)]
+    a, b = src[rank]
+    sends, recvs, masks = {}, {}, {}
+    oa, ob = dst[rank]
+    mine = idx[oa:ob]
+    for j in range(comm.nprocs):
+        q = idx[dst[j][0]:dst[j][1]]
+        sends[j] = local[q[(q >= a) & (q < b)] - a]
+        masks[j] = (mine >= src[j][0]) & (mine < src[j][1])
+        recvs[j] = ((int(masks[j].sum()),) + tuple(local.shape[1:]), local.dtype)
+    got = _xproc.exchange(sends, recvs, local.device)
+    out = torch.empty((ob - oa,) + tuple(local.shape[1:]), dtype=local.dtype, device=local.device)
+    for j in range(comm.nprocs):
+        out[masks[j]] = got[j]
+    return out
+
+
+def xp_put(n: int, idx: torch.Tensor, vals: torch.Tensor, comm: TorchCommunication,
+           base: torch.Tensor, split_vals: bool) -> torch.Tensor:
+    """The ring put across processes: ``out[idx[i]] = vals[i]`` over this
+    process's true rows ``base`` of the (n, ...) destination; ``idx`` (m,)
+    is whole in every process, ``vals`` this process's rows of the values
+    when ``split_vals`` (split like the index), else all m rows.
+    Out-of-range indices drop.  A duplicate destination takes the last
+    write in the one-process ring's order (the module docstring), so the
+    result is the one-process ring put's."""
+    from ..core import _xproc
+
+    m, rank, p = int(idx.shape[0]), comm.rank, comm.size
+    dev = base.device
+    idx = _sanitize_index(idx.to(dev), n)
+    wq, wo = comm.shard_width(m), comm.shard_width(n)
+    # the ring order: a destination in block o is written by position o,
+    # then o + 1, ...; within a position the later query wins
+    i = torch.arange(m, device=dev)
+    order = ((i // max(wq, 1) - idx // max(wo, 1)) % p) * max(wq, 1) + i % max(wq, 1)
+    dst = [comm.process_rows(n, k) for k in range(comm.nprocs)]
+    a, b = dst[rank]
+    hit = (idx >= a) & (idx < b)
+    if split_vals:
+        qs = [comm.process_rows(m, k) for k in range(comm.nprocs)]
+        qa, qb = qs[rank]
+        sends, recvs = {}, {}
+        for j in range(comm.nprocs):
+            q = idx[qa:qb]
+            sends[j] = vals[(q >= dst[j][0]) & (q < dst[j][1])]
+            recvs[j] = ((int(hit[qs[j][0]:qs[j][1]].sum()),) + tuple(vals.shape[1:]), vals.dtype)
+        got = _xproc.exchange(sends, recvs, dev)
+        v = torch.cat([got[j] for j in range(comm.nprocs)])
+    else:
+        v = vals[hit]
+    d, o = idx[hit] - a, order[hit]
+    out = base.clone()
+    if d.numel():
+        # the last write of each destination, in ring order
+        key = d * (p * max(wq, 1) + 1) + o
+        srt = torch.argsort(key)
+        d, v = d[srt], v[srt]
+        last = torch.ones_like(d, dtype=torch.bool)
+        last[:-1] = d[1:] != d[:-1]
+        bits = as_bits(out)
+        bits[d[last]] = as_bits(v[last])
+        out = from_bits(bits, out.dtype)
+    return out

@@ -208,7 +208,10 @@ class Lasso(RegressionMixin, BaseEstimator):
         convergence test is read on the host, so under a trace it raises
         ``FuseTraceError``."""
         require_concrete("Lasso.fit (its convergence test is read on the host each sweep)")
+        from ..core import _xproc
         from ..io import stream as _stream
+
+        _xproc.refuse_across("Lasso.fit", comm, *[a for a in (x, y) if isinstance(a, DNDarray)])
 
         if (
             isinstance(x, _stream.StreamSource)

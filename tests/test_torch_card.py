@@ -72,6 +72,12 @@ replacement.
 The capture rules: ``tests/test_torch_capture_rules.py``'s fixtures on
 the card, each held to what the linter's finding on it means there
 (``chip_smoke.capture_ground_truth``, phase 19's second part).
+
+The port across processes: phase 20's spine at a small size, two
+processes of ``chip_smoke.py --multihost`` on ``cuda:0`` over gloo
+(``chip_smoke.phase_multihost``): ``int8_block`` results bitwise the
+one-process run at four positions, each child's launches equal to its,
+the ledgers summing to ``wire_model``, no CUDA context left behind.
 """
 
 import importlib
@@ -1487,3 +1493,16 @@ def test_capture_rules_ground_truth_on_card(cuda_device):
     mod = chip_smoke.capture_rules_module()
     assert sorted(metrics["capture_refused"]) == sorted(mod.REFUSED)
     assert sorted(metrics["capture_clean"]) == sorted(mod.CLEAN)
+
+
+@pytest.mark.gpu
+def test_two_processes_on_card(cuda_device):
+    """Phase 20 at 8192 rows: two processes of two positions each on the
+    card, held to the one-process run as ``chip_smoke.py`` holds them."""
+    launches, metrics = chip_smoke.phase_multihost(
+        torch, htt, tcq, torch.device("cuda", 0), chip_smoke.card_line(), rows=8192, payload=8192,
+        reps=3)
+    assert (metrics["phase20_backend"], metrics["phase20_transport"]) == (
+        "gloo", "gloo, staged through host memory")
+    assert metrics["phase20_launches_per_child"]["blockquant_dequantize_add_quantize"] > 0
+    assert launches == {k: 2 * v for k, v in metrics["phase20_launches_per_child"].items()}

@@ -43,10 +43,9 @@ TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "bfloat1
 # the public surface                                                      #
 # --------------------------------------------------------------------- #
 #: names of a reference module's __all__ that the port does not have yet,
-#: each with the queue item of ROADMAP.md that brings it
-WAITING = {
-    "communication": {"init_multihost": "A3b"},
-}
+#: each with the queue item of ROADMAP.md that brings it (none since
+#: ``init_multihost``, A3b1)
+WAITING = {}
 #: names the port spells differently
 RENAMED = {"communication": {"XlaCommunication": "TorchCommunication"}}
 #: names only the port exports: its own ``neg`` (the reference's __neg__
@@ -125,7 +124,7 @@ def test_surface_equals_reference_less_waiting_names(name):
 #: the package-level names that differ on purpose (C11): the reference's
 #: waiting names with the queue item that brings them, the names it leaks,
 #: its communicator's name, and the port's own names
-TOP_WAITING = {"init_multihost": "A3b"}
+TOP_WAITING = {}
 TOP_REF_LEAKS = {"basics", "solver"}
 TOP_RENAMED = {"XlaCommunication": "TorchCommunication", "heat_tpu": "heat_tpu_torch"}
 #: ``interop`` is imported by the port's package (the reference leaves

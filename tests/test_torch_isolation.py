@@ -88,6 +88,7 @@ def test_each_slice_module_imports_without_jax_or_heat_tpu():
         "heat_tpu_torch.analysis.splitflow.report", "heat_tpu_torch.analysis.splitflow.checkers",
         "heat_tpu_torch.analysis.checkers", "heat_tpu_torch.analysis.baseline",
         "heat_tpu_torch.analysis.cache", "heat_tpu_torch.analysis.cli",
+        "heat_tpu_torch.core._xproc",
     ]
     proc = _run(
         "import importlib, sys\n"
@@ -181,6 +182,27 @@ def test_a_replica_serves_without_jax_or_heat_tpu(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_processes_run_without_jax_or_heat_tpu():
+    """``chip_smoke.py``'s phase 20 rehearsed on the CPU at 4096 rows: its
+    two ``--multihost`` child processes join the gloo group, run the
+    spine and report that neither jax nor heat_tpu was imported (the
+    phase fails otherwise), and neither is imported here."""
+    proc = _run(
+        "import sys, torch, chip_smoke, heat_tpu_torch as htt\n"
+        "from heat_tpu_torch.comm import compressed as cq\n"
+        "htt.use_device('cpu')\n"
+        "_, m = chip_smoke.phase_multihost(torch, htt, cq, torch.device('cpu'), 'cpu', rows=4096,\n"
+        "                                  payload=4096, reps=3)\n"
+        "assert m['phase20_backend'] == 'gloo' and m['phase20_hop_messages'] == 4, m\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'heat_tpu' or m.startswith('heat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def _imports(path: Path):
